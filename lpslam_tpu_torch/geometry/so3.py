@@ -1,0 +1,118 @@
+"""SO(3) Lie-group math, batched (port of lpslam_tpu/geometry/so3.py).
+
+Only what the monocular tracking slice calls: hat, exp/log (quaternion route)
+and the left Jacobian pair used by the SE(3) exp/log maps. float32, every
+function broadcasts over leading batch dimensions.
+"""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-8
+
+
+def hat(w):
+    """so(3) hat operator: (...,3) -> (...,3,3) skew-symmetric matrix."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack(
+        [
+            torch.stack([z, -wz, wy], dim=-1),
+            torch.stack([wz, z, -wx], dim=-1),
+            torch.stack([-wy, wx, z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _eye_like(W):
+    return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
+
+
+def so3_exp(w):
+    """Exponential map: axis-angle (...,3) -> rotation matrix (...,3,3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    small = theta2 < _EPS
+    A = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    W = hat(w)
+    return _eye_like(W) + A[..., None, None] * W + B[..., None, None] * (W @ W)
+
+
+def so3_log(R):
+    """Log map: rotation matrix (...,3,3) -> axis-angle (...,3)."""
+    return quat_log(rot_to_quat(R))
+
+
+def quat_log(q):
+    """Unit quaternion (w,x,y,z) -> axis-angle."""
+    qw = torch.clamp(q[..., 0], -1.0, 1.0)
+    qv = q[..., 1:]
+    nv = torch.linalg.norm(qv, dim=-1)
+    theta = 2.0 * torch.atan2(nv, torch.abs(qw))
+    sign = torch.where(qw < 0, -1.0, 1.0)
+    scale = torch.where(
+        nv < _EPS, 2.0 * sign, sign * theta / torch.clamp(nv, min=_EPS)
+    )
+    return scale[..., None] * qv
+
+
+def rot_to_quat(R):
+    """Rotation matrix (...,3,3) -> unit quaternion (w,x,y,z), w >= 0
+    (branch-free Shepperd's method, as in the JAX package)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+    cand = torch.stack(
+        [
+            torch.stack([qw2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+            torch.stack([m21 - m12, qx2, m01 + m10, m02 + m20], dim=-1),
+            torch.stack([m02 - m20, m01 + m10, qy2, m12 + m21], dim=-1),
+            torch.stack([m10 - m01, m02 + m20, m12 + m21, qz2], dim=-1),
+        ],
+        dim=-2,
+    )  # (...,4,4)
+    mags = torch.stack([qw2, qx2, qy2, qz2], dim=-1)
+    idx = torch.argmax(mags, dim=-1)
+    q = torch.take_along_dim(
+        cand, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2
+    )[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., 0:1] < 0, -1.0, 1.0)
+
+
+def so3_left_jacobian(w):
+    """Left Jacobian of SO(3): J_l(w), (...,3) -> (...,3,3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    small = theta2 < _EPS
+    B = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    C = torch.where(
+        small,
+        1.0 / 6.0 - theta2 / 120.0,
+        (theta - torch.sin(theta)) / (theta2 * theta),
+    )
+    W = hat(w)
+    return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
+
+
+def so3_left_jacobian_inv(w):
+    """Inverse left Jacobian of SO(3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    small = theta2 < _EPS
+    half = 0.5 * theta
+    cot = torch.where(
+        small,
+        1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half) / torch.clamp(torch.sin(half), min=_EPS))
+        / torch.clamp(theta2, min=_EPS),
+    )
+    W = hat(w)
+    return _eye_like(W) - 0.5 * W + cot[..., None, None] * (W @ W)
