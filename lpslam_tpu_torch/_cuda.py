@@ -4,6 +4,7 @@ Each kernel file exposes a plain C entry point. It is compiled with ``nvcc``
 for ``sm_90a`` into ``lpslam_tpu_torch/_build/`` on first use and loaded with
 ctypes; nothing is compiled when a module is imported. The library's name
 carries a hash of its source, so an edited source is always rebuilt.
+``load_libraries`` builds several sources at once, one nvcc process each.
 """
 from __future__ import annotations
 
@@ -37,29 +38,47 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (once per process and source version) and
-    return the loaded library. Raises if nvcc fails."""
-    if source in _LIBS:
-        return _LIBS[source]
-    src = CSRC / source
+def _lib_path(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
+
+
+def load_libraries(sources) -> dict:
+    """Compile each ``csrc/<source>`` not built yet — one nvcc process per
+    source, all started together — and return {source: loaded library}.
+    Raises if any nvcc fails."""
+    todo = [s for s in sources if s not in _LIBS]
     t0 = time.perf_counter()
-    if not lib_path.exists():
+    jobs = []
+    for source in todo:
+        src = CSRC / source
+        lib_path = _lib_path(src)
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        jobs.append((src, tmp, lib_path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, tmp, lib_path, proc in jobs:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {src.name}:\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    BUILD_SECONDS[source] = time.perf_counter() - t0
-    _LIBS[source] = lib
-    return lib
+            failed.append(f"nvcc failed for {src.name}:\n{out}\n{err}")
+        else:
+            os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for source in todo:
+        _LIBS[source] = ctypes.CDLL(str(_lib_path(CSRC / source)))
+        BUILD_SECONDS[source] = time.perf_counter() - t0
+    return {s: _LIBS[s] for s in sources}
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (once per process and source version) and
+    return the loaded library. Raises if nvcc fails."""
+    return load_libraries([source])[source]
 
 
 def check(status: int, what: str) -> None:

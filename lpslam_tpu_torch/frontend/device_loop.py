@@ -1,15 +1,18 @@
-"""Chunked tracking loop, monocular (port of
+"""Chunked tracking loop for the mono, stereo and RGB-D trackers (port of
 lpslam_tpu/frontend/device_loop.py).
 
-Per chunk of B raw frames: one upload, one batched remap (undistortion) and
-one batched ``extract_orb`` over the whole chunk — feature extraction does
-not depend on tracking state. Then a per-frame loop replaces the JAX
-``lax.scan``: ``track_frame``, the keyframe policy, ``insert_keyframe`` and
-the rate-capped windowed ``local_ba``. The keyframe and BA decisions are
-taken on the host from ONE device read per frame (``.tolist()`` of the
-packed inlier and capacity counters); the JAX scan takes them on the device
-under ``lax.cond``. The chunk boundary runs the keyframe cull/compaction.
-Capturing the non-keyframe step in a CUDA graph is later work.
+Per chunk of B raw frames: one upload, one batched remap (undistortion or
+rectification) and one batched ``extract_orb`` of the (left) images over the
+whole chunk — feature extraction does not depend on tracking state. Then a
+per-frame loop replaces the JAX ``lax.scan``: ``track_frame``, the keyframe
+policy, the keyframe insert and the rate-capped windowed ``local_ba``. The
+depth modes insert keyframes with ``insert_keyframe_depth`` plus a two-view
+pass for far points; stereo extracts the right eye only on keyframes. The
+keyframe and BA decisions are taken on the host from ONE device read per
+frame (``.tolist()`` of the packed inlier and capacity counters); the JAX
+scan takes them on the device under ``lax.cond``. The chunk boundary runs
+the keyframe cull/compaction. Capturing the non-keyframe step in a CUDA
+graph is later work.
 
 The carry's pose and velocity stay on the device; its counters (status,
 frame ids, inliers at the last keyframe) are host ints.
@@ -28,12 +31,20 @@ from ..geometry.se3 import (
 from ..kernels.orb import OrbFeatures, extract_orb
 from ..kernels.remap import remap_bilinear
 from ..mapstore.store import MapStore, cull_and_compact
+from .stereo import (
+    RGBDTracker,
+    StereoTracker,
+    bilinear_depths,
+    insert_keyframe_depth,
+    stereo_depths,
+)
 from .tracker import (
     MonoTracker,
     TrackerConfig,
     TrackerStatus,
     insert_keyframe,
     track_frame,
+    triangulate_new_landmarks,
 )
 
 
@@ -72,10 +83,20 @@ _EMPTY_OUT = (
 
 
 def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device,
-                    rectify_map=None):
-    """Build the (carry, frames (B, H, W)) -> (carry, FrameOut) step for the
-    monocular loop on `device`. rectify_map: optional (H, W, 2) remap grid
-    applied to the whole chunk before extraction."""
+                    rectify_map=None, mode: str = "mono",
+                    focal_x_baseline: float = 0.0, y_margin: float = 2.0,
+                    max_depth: float = 12.0, min_depth: float = 0.1):
+    """Build the (carry, frames) -> (carry, FrameOut) step on `device`.
+
+    frames per mode:
+      mono   — (B, H, W);
+      stereo — (B, 2, H, W) eye pairs; keyframes seed landmarks from
+               row-matched, sub-pixel refined disparity;
+      rgbd   — a ((B, H, W) gray, (B, H, W) depth) tuple; keyframes seed
+               landmarks from bilinear depth.
+    rectify_map: optional remap grid applied to the whole chunk before
+    extraction — (H, W, 2), or (2, H, W, 2) for stereo, one per eye; rgbd
+    remaps its depth maps with the same grid as the gray images."""
     device = torch.device(device)
     K = cfg.map_cfg.max_keyframes
     M = cfg.map_cfg.max_landmarks
@@ -86,8 +107,21 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device,
     rmap = None if rectify_map is None else torch.as_tensor(
         np.asarray(rectify_map, np.float32), device=device
     )
+    ba_interval = (
+        cfg.scan_ba_min_interval if mode == "mono" else cfg.scan_ba_min_interval_depth
+    )
 
-    def step(carry: ChunkCarry, feats: OrbFeatures):
+    def _depth_for_keyframe(left, aux, feats):
+        """Depth per left keypoint: (z, ok). aux is the right eye (stereo,
+        extracted here, only on keyframes) or the depth map (rgbd)."""
+        if mode == "stereo":
+            rfeats = extract_orb(aux, cfg.orb)
+            return stereo_depths(
+                left, aux, feats, rfeats, focal_x_baseline, y_margin, max_depth
+            )
+        return bilinear_depths(aux, feats, min_depth, max_depth)
+
+    def step(carry: ChunkCarry, feats: OrbFeatures, left, aux):
         pose = SE3(carry.pose_R, carry.pose_t)
         vel = SE3(carry.vel_R, carry.vel_t)
         lost = carry.status == TrackerStatus.LOST
@@ -116,13 +150,19 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device,
         )
         kf = ok and want and n_kf < K and n_lm < M - N
         m2 = tr.map
-        if kf:
+        if kf and mode == "mono":
             m2 = insert_keyframe(
                 m2, new_pose, cam, feats, tr.kp_lm_idx, carry.frame_id, cfg
             )
+        elif kf:
+            z, dok = _depth_for_keyframe(left, aux, feats)
+            m2 = insert_keyframe_depth(
+                m2, new_pose, cam, feats, tr.kp_lm_idx, z, dok, carry.frame_id
+            )
+            # far points beyond the depth gate: two-view triangulation
+            m2 = triangulate_new_landmarks(m2, cam, cfg)
         ba_due = kf and (
-            cfg.scan_ba_min_interval <= 0
-            or carry.frame_id - carry.last_ba_frame >= cfg.scan_ba_min_interval
+            ba_interval <= 0 or carry.frame_id - carry.last_ba_frame >= ba_interval
         )
         if ba_due and cfg.local_ba_window > 0:
             from ..backend.ba import local_ba
@@ -148,14 +188,25 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device,
         )
         return new_carry, out
 
+    def _prep(x, grid):
+        x = x.to(device=device, dtype=torch.float32)
+        return x if grid is None else remap_bilinear(x, grid)
+
     def scan_chunk(carry: ChunkCarry, frames):
-        xs = frames.to(device=device, dtype=torch.float32)
-        if rmap is not None:
-            xs = remap_bilinear(xs, rmap)
-        feats_all = extract_orb(xs, cfg.orb)
+        if mode == "mono":
+            left, aux = _prep(frames, rmap), None
+        elif mode == "stereo":
+            left = _prep(frames[:, 0], None if rmap is None else rmap[0])
+            aux = _prep(frames[:, 1], None if rmap is None else rmap[1])
+        else:
+            left, aux = _prep(frames[0], rmap), _prep(frames[1], rmap)
+        feats_all = extract_orb(left, cfg.orb)
         outs = []
-        for i in range(xs.shape[0]):
-            carry, out = step(carry, OrbFeatures(*(f[i] for f in feats_all)))
+        for i in range(left.shape[0]):
+            carry, out = step(
+                carry, OrbFeatures(*(f[i] for f in feats_all)), left[i],
+                None if aux is None else aux[i],
+            )
             outs.append(out)
         sts, n_inl, pR, pt, kfs, sp, sr = zip(*outs)
         return carry, FrameOut(
@@ -176,8 +227,8 @@ def _out_to_numpy(cat: FrameOut):
 
 
 class ChunkedTracker:
-    """Drives an initialized MonoTracker through the chunk loop on the
-    engine's device.
+    """Drives an initialized MonoTracker, StereoTracker or RGBDTracker
+    through the chunk loop on the engine's device; ``mode`` says which.
 
         eng = MonoTracker(cam, cfg, device="cuda")  # host path initializes
         ct = ChunkedTracker(eng, rectify_map=grid)
@@ -195,8 +246,21 @@ class ChunkedTracker:
         self.engine = engine
         self.device = engine.device
         self._boundary_count = 0
+        if isinstance(engine, RGBDTracker):
+            mode, extra = "rgbd", dict(
+                max_depth=engine.max_depth, min_depth=engine.min_depth
+            )
+        elif isinstance(engine, StereoTracker):
+            mode, extra = "stereo", dict(
+                focal_x_baseline=engine.focal_x_baseline,
+                y_margin=engine.y_margin, max_depth=engine.max_depth,
+            )
+        else:
+            mode, extra = "mono", {}
+        self.mode = mode
         self._scan = make_chunk_step(
-            engine.cam, engine.cfg, self.device, rectify_map=rectify_map
+            engine.cam, engine.cfg, self.device, rectify_map=rectify_map,
+            mode=mode, **extra,
         )
         self._outs: list = []
         self._pending_carry = None
@@ -222,17 +286,21 @@ class ChunkedTracker:
         )
 
     def prefetch(self, frames):
-        """Stage a chunk on the device; returns a handle for process_chunk."""
+        """Stage a chunk on the device; returns a handle for process_chunk.
+        rgbd passes a (gray, depth) tuple."""
+        if isinstance(frames, tuple):
+            return tuple(self.prefetch(f) for f in frames)
         return torch.as_tensor(frames).to(self.device, non_blocking=True)
 
     def process_chunk(self, frames) -> None:
-        """Advance tracking over one (B, H, W) chunk (host array or a
-        prefetch() handle)."""
+        """Advance tracking over one chunk (host arrays or a prefetch()
+        handle): (B, H, W) mono, (B, 2, H, W) stereo eye pairs, or a
+        ((B, H, W) gray, (B, H, W) depth) tuple for rgbd."""
         assert self.ready, "initialize via the host path first"
         e = self.engine
         start_frame = e.frame_id
         frames = self.prefetch(frames)
-        n_frames = int(frames.shape[0])
+        n_frames = int((frames[0] if isinstance(frames, tuple) else frames).shape[0])
         carry, out = self._scan(self._carry(), frames)
 
         e.map = carry.m

@@ -6,8 +6,10 @@ Device steps — ``track_frame``, ``insert_keyframe``,
 -> TRACKING <-> LOST) with constant-velocity prediction, the keyframe policy,
 two-view initialization and the async-mapping double buffer.
 
-Left out of this port for now: relocalization, navigation priors, keypoint
-masks and the depth (stereo / RGB-D) trackers.
+The depth trackers (frontend/stereo.py) subclass ``MonoTracker`` through
+its hooks: ``_needs_two_frames``, ``_try_initialize(feats, aux)`` and
+``_make_keyframe_map``. Left out of this port for now: relocalization,
+navigation priors and keypoint masks.
 """
 from __future__ import annotations
 
@@ -46,8 +48,7 @@ class TrackerStatus(IntEnum):
 
 
 class TrackerConfig(NamedTuple):
-    """The JAX package's tracker configuration, less
-    ``scan_ba_min_interval_depth``, which only the depth trackers read."""
+    """The JAX package's tracker configuration."""
 
     orb: OrbParams = OrbParams()
     map_cfg: MapConfig = MapConfig()
@@ -68,6 +69,8 @@ class TrackerConfig(NamedTuple):
     local_ba_iters: int = 6
     local_ba_covisibility: bool = True
     scan_ba_min_interval: int = 8
+    # the depth modes' in-loop BA rate cap; 0 = BA on every keyframe
+    scan_ba_min_interval_depth: int = 0
     kf_culling: bool = True
     kf_cull_redundancy: float = 0.9
     kf_cull_min_other_obs: int = 3
@@ -294,11 +297,15 @@ class MonoTracker:
         self._pending_compacts: list = []
         self._kf_count = 0
 
+    # monocular init needs two frames with a baseline; the depth trackers
+    # bootstrap from one
+    _needs_two_frames = True
+
     def _extract(self, image) -> OrbFeatures:
         img = torch.as_tensor(image, dtype=torch.float32, device=self.device)
         return extract_orb(img, self.cfg.orb)
 
-    def _try_initialize(self, feats: OrbFeatures) -> bool:
+    def _try_initialize(self, feats: OrbFeatures, aux=None) -> bool:
         f0 = self._init_feats
         idx, ok = match_mutual_nn(
             f0.desc, feats.desc, f0.valid, feats.valid,
@@ -394,19 +401,25 @@ class MonoTracker:
             return True
         return n_inliers < self.cfg.kf_inlier_ratio * self.inliers_at_last_kf
 
-    def process(self, image) -> tuple:
-        """Feed one frame. Returns (status, pose Tcw as SE3 | None)."""
+    def process(self, image, aux=None) -> tuple:
+        """Feed one frame. Returns (status, pose Tcw as SE3 | None).
+        aux: the right eye (stereo) or the depth map (RGB-D); unused here."""
         self._adopt_pending_map()
         feats = self._extract(image)
         self.last_feats = feats
         st = self.status
-        if st == TrackerStatus.NOT_INITIALIZED:
+        if st == TrackerStatus.NOT_INITIALIZED and self._needs_two_frames:
             self._init_feats = feats
             self._init_frame_id = self.frame_id
             self.status = TrackerStatus.INITIALIZING
             self._record(None)
+        elif st == TrackerStatus.NOT_INITIALIZED:
+            ok = self._try_initialize(feats, aux)
+            if ok:
+                self.status = TrackerStatus.TRACKING
+            self._record(self.pose if ok else None)
         elif st == TrackerStatus.INITIALIZING:
-            if self._try_initialize(feats):
+            if self._try_initialize(feats, aux):
                 self.status = TrackerStatus.TRACKING
                 self._record(self.pose)
             else:
@@ -441,7 +454,7 @@ class MonoTracker:
                         self._compact(force_min_one=True)
                         self._drain_compact_stats()
                     if self._kf_count < self.cfg.map_cfg.max_keyframes:
-                        self._spawn_keyframe_pipeline(feats, tr)
+                        self._spawn_keyframe_pipeline(feats, tr, aux)
                         self.last_kf_frame = self.frame_id
                         self.inliers_at_last_kf = max(n_inl, 1)
                 self._record(self.pose)
@@ -454,12 +467,17 @@ class MonoTracker:
             self.pose if self.status == TrackerStatus.TRACKING else None
         )
 
-    def _spawn_keyframe_pipeline(self, feats, tr):
-        """Insert keyframe + triangulate + local BA + cull/compact. With
-        async_mapping the result is adopted at the next frame boundary."""
-        m2 = insert_keyframe(
-            self.map, self.pose, self.cam, feats, tr.kp_lm_idx, self.frame_id, self.cfg
+    def _make_keyframe_map(self, m, pose, feats, kp_lm_idx, aux) -> MapStore:
+        """The map with this frame written as a keyframe and new landmarks
+        made (mono: two-view triangulation)."""
+        return insert_keyframe(
+            m, pose, self.cam, feats, kp_lm_idx, self.frame_id, self.cfg
         )
+
+    def _spawn_keyframe_pipeline(self, feats, tr, aux):
+        """Insert keyframe + new landmarks + local BA + cull/compact. With
+        async_mapping the result is adopted at the next frame boundary."""
+        m2 = self._make_keyframe_map(self.map, self.pose, feats, tr.kp_lm_idx, aux)
         if self.cfg.local_ba_window > 0:
             from ..backend.ba import local_ba
 

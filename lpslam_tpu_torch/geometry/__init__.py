@@ -15,4 +15,5 @@ from .camera import (
     distort_radtan,
     undistort_points_radtan,
     undistort_map_radtan,
+    rectify_maps_stereo,
 )

@@ -140,14 +140,19 @@ BENCH_CAM = {
 
 class SyntheticBenchmark:
     """Streamed room-loop sequence: a circle of radius `orbit_r` at walking
-    height with a height bob and pitch nod, camera looking outward."""
+    height with a height bob and pitch nod, camera looking outward; with
+    `stereo` a right eye `BENCH_CAM["baseline"]` to the right, with
+    `with_depth` a depth map per frame."""
 
     def __init__(self, num_frames: int = 600, h: int = 480, w: int = 640,
-                 seed: int = 0, distortion: bool = True, photometric: bool = True,
+                 seed: int = 0, stereo: bool = False, with_depth: bool = False,
+                 distortion: bool = True, photometric: bool = True,
                  orbit_r: float = 1.2, fps: float = 20.0, turns: float = 1.08):
         self.turns = turns
         self.num_frames = num_frames
         self.h, self.w = h, w
+        self.stereo = stereo
+        self.with_depth = with_depth
         self.photometric = photometric
         self.fps = fps
         self.intr = dict(BENCH_CAM)
@@ -192,12 +197,27 @@ class SyntheticBenchmark:
         return self.num_frames
 
     def __iter__(self) -> Iterator[DatasetFrame]:
+        """Frames in order. stereo: the right eye is rendered at
+        C + R_wc @ [baseline, 0, 0] right after the left one, from the same
+        noise stream; with_depth: the left eye's z-depth map (0 = no hit)."""
+        b = self.intr["baseline"]
         for i in range(self.num_frames):
             R_wc, C = self._poses[i]
-            img, _ = _render(
+            rng = self._rng if self.photometric else None
+            ft = i / max(self.num_frames - 1, 1)
+            img, depth = _render(
                 self._planes, self._rays, R_wc, C,
-                rng=self._rng if self.photometric else None,
-                photometric=self.photometric,
-                frame_t=i / max(self.num_frames - 1, 1),
+                rng=rng, photometric=self.photometric, frame_t=ft,
             )
-            yield DatasetFrame(timestamp=i / self.fps, image=img)
+            right = None
+            if self.stereo:
+                right, _ = _render(
+                    self._planes, self._rays, R_wc, C + R_wc @ np.array([b, 0, 0]),
+                    rng=rng, photometric=self.photometric, frame_t=ft,
+                )
+            yield DatasetFrame(
+                timestamp=i / self.fps,
+                image=img,
+                image_right=right,
+                depth=depth if self.with_depth else None,
+            )

@@ -1,16 +1,19 @@
 """Where the time of the PyTorch/CUDA port's chunk loop goes, on one card.
 
-    python3 tools/profile_torch_slice.py [--chunks 2]
+    python3 tools/profile_torch_slice.py [--chunks 2] [--mode mono|stereo|rgbd]
 
-Initializes the monocular slice exactly as chip_smoke.py does (640x480 room,
-1200 keypoints, 3 levels, chunks of 16), runs one warm-up chunk, then:
+Initializes the monocular (or stereo, or RGB-D) slice exactly as
+chip_smoke.py does (640x480 room, 1200 keypoints, 3 levels, chunks of 16),
+runs one warm-up chunk, then:
 
 1. plain window: `--chunks` chunks, uninstrumented, synchronized only at
    its two ends — the loop's own ms/frame;
 2. phase breakdown: `--chunks` more chunks with each phase of the loop
-   (batched remap+ORB, track_frame, insert_keyframe, local_ba, boundary
-   cull) timed on the host clock between torch.cuda.synchronize() calls, and
-   inside track_frame its pose_only_optimize and match_projected calls;
+   (batched remap+ORB, track_frame, the keyframe inserts, the depth modes'
+   keypoint depths, local_ba, boundary cull) timed on the host clock between
+   torch.cuda.synchronize() calls, and inside track_frame its
+   pose_only_optimize and match_projected calls (stereo's right-eye
+   extraction on keyframes counts under extract_orb);
 3. device view: `--chunks` more chunks under torch.profiler — device time
    per frame, device events per frame and the top kernels by device time.
    The profiler slows the host about twofold, so the device busy share is
@@ -50,6 +53,7 @@ def _timed(store, name, fn):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--chunks", type=int, default=2)
+    ap.add_argument("--mode", choices=["mono", "stereo", "rgbd"], default="mono")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -60,16 +64,22 @@ def main() -> int:
 
     card = chip_smoke.card_line()
     chunk = chip_smoke.CHUNK
-    st = chip_smoke.init_slice(torch.device("cuda"), n_after=chunk * (1 + 3 * args.chunks))
-    ct, frames, t = st["ct"], st["frames"], st["t"]
-    ct.process_chunk(frames[t:t + chunk])
+    n_init = chip_smoke.N_INIT if args.mode == "mono" else chip_smoke.DEPTH_N_INIT
+    st = chip_smoke.init_slice(torch.device("cuda"), mode=args.mode, n_init=n_init,
+                               n_after=chunk * (1 + 3 * args.chunks))
+    ct, t = st["ct"], st["t"]
+
+    def frames(t0, t1):
+        return st["chunk_of"](t0, t1 - t0)
+
+    ct.process_chunk(frames(t, t + chunk))
     t += chunk
     torch.cuda.synchronize()
 
     # 1. the loop as it runs, uninstrumented
     t0 = time.perf_counter()
     for _ in range(args.chunks):
-        ct.process_chunk(frames[t:t + chunk])
+        ct.process_chunk(frames(t, t + chunk))
         t += chunk
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
@@ -79,6 +89,9 @@ def main() -> int:
     saved = {}
     for mod, name in ((device_loop, "extract_orb"), (device_loop, "remap_bilinear"),
                       (device_loop, "track_frame"), (device_loop, "insert_keyframe"),
+                      (device_loop, "insert_keyframe_depth"),
+                      (device_loop, "triangulate_new_landmarks"),
+                      (device_loop, "stereo_depths"), (device_loop, "bilinear_depths"),
                       (device_loop, "cull_and_compact"), (ba, "local_ba"),
                       (tracker, "pose_only_optimize"), (tracker, "match_projected")):
         saved[(mod, name)] = getattr(mod, name)
@@ -87,7 +100,7 @@ def main() -> int:
     # at call time; the track_frame phase includes its two sub-phases)
     t0 = time.perf_counter()
     for _ in range(args.chunks):
-        ct.process_chunk(frames[t:t + chunk])
+        ct.process_chunk(frames(t, t + chunk))
         t += chunk
     torch.cuda.synchronize()
     wall_phase = time.perf_counter() - t0
@@ -101,7 +114,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.chunks):
-            ct.process_chunk(frames[t:t + chunk])
+            ct.process_chunk(frames(t, t + chunk))
             t += chunk
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t0
@@ -120,6 +133,7 @@ def main() -> int:
     n_frames = args.chunks * chunk
     print(json.dumps({
         "card": card,
+        "mode": args.mode,
         "frames": n_frames,
         "phase_ms_per_frame": {k: v * 1e3 / n_frames for k, v in phases.items()},
         "plain_ms_per_frame": wall_plain * 1e3 / n_frames,
