@@ -60,6 +60,146 @@ def ate_bound(mode: str) -> float:
     return max(1.5 * ref, ref + 0.02)
 
 
+# phases 7-8: the room with loop closure, the configuration of the JAX
+# package's EVAL_r05 mono row (`run_dataset --bench room --mode mono --frames
+# 600 --loop`) with its chunk loop on (`--chunk 16`), lengthened at
+# run_dataset's per-frame motion (turns = 1.08 * n / 600) until the JAX
+# package accepts a closure on the CPU (tools/jax_loop_reference.py): none at
+# 600 or 700 frames, one at 740, the shortest length tried that has one.
+LOOP_FRAMES = 740
+LOOP_FPS = 20.0
+LOOP_CONFIG = {
+    "mode": "mono", "keypoints": KEYPOINTS, "levels": LEVELS,
+    "max_keyframes": 128, "max_landmarks": 24576,
+    "loop_closure": True, "loop_global_ba_iters": 5,
+    # synchronous closing is deterministic: the run held to the JAX one
+    "loop_async": False, "chunk_size": CHUNK,
+}
+# phase 8: first-lap frames from the part of the orbit the second lap does
+# not revisit (lap two covers lap one's frames 0-185), so the map holds one
+# region for each; where both laps mapped a place, their landmarks may stay
+# apart (0.42 m at frame 150 in the JAX package's 800-frame map)
+KIDNAP_FRAMES = (280, 350, 420, 490)
+
+
+def render_room(n_frames: int = LOOP_FRAMES, h: int = 480, w: int = 640):
+    """The room's raw uint8 frames, ground-truth centres, intrinsics and the
+    numpy undistortion grid (the port's numpy renderer and map, which the
+    JAX reference tool uses too, so both packages see the same bytes)."""
+    from lpslam_tpu_torch.geometry.camera import undistort_map_radtan
+    from lpslam_tpu_torch.io import SyntheticBenchmark
+
+    ds = SyntheticBenchmark(num_frames=n_frames, h=h, w=w, seed=0,
+                            turns=1.08 * n_frames / 600.0, fps=LOOP_FPS)
+    raw = np.stack([np.clip(f.image, 0, 255).astype(np.uint8) for f in ds])
+    intr = ds.intr
+    K = np.array([[intr["fx"], 0, intr["cx"]], [0, intr["fy"], intr["cy"]], [0, 0, 1]])
+    grid = undistort_map_radtan(K, intr["dist"], (h, w))
+    return raw, ds.ground_truth().positions, K, grid
+
+
+def drive_room(tracker, tracking, entry_cls, raw, rectified, chunk: int = CHUNK) -> int:
+    """Feed frames to a VSLAMTracker with the undistortion grid attached to
+    its chunk path (`attach_device_rectify`): a frame headed for the host
+    path (engine not TRACKING) is passed undistorted (`rectified(t)`), one
+    headed for the chunk path raw. Feeding stops at the last whole chunk, so
+    flush() sends no raw frame through the host path. Returns frames fed."""
+    n = end = len(raw)
+    chunked = False
+    t = 0
+    while t < end:
+        host = tracker.engine.status != tracking
+        if not host and not chunked:
+            chunked = True
+            end = t + chunk * ((n - t) // chunk)
+            if t >= end:
+                break
+        img = rectified(t) if host else raw[t]
+        tracker.process_image(entry_cls(timestamp=t / LOOP_FPS, image=img))
+        t += 1
+    tracker.flush()
+    return t
+
+
+def record_closures(closer_cls):
+    """Record every verdict the class applies that named a candidate, as
+    (k_new, candidate, n_matches, n_inliers, accepted). Returns (list, undo)."""
+    verdicts = []
+    orig = closer_cls.apply
+
+    def apply(self, m, verdict, cam=None):
+        out = orig(self, m, verdict, cam=cam)
+        r = verdict.result
+        if r.candidate >= 0:
+            verdicts.append((int(verdict.k_new), int(r.candidate), int(r.n_matches),
+                             int(r.n_inliers), bool(r.detected)))
+        return out
+
+    closer_cls.apply = apply
+    return verdicts, lambda: setattr(closer_cls, "apply", orig)
+
+
+def room_metrics(engine, gt):
+    """Tracked frames, Sim3 ATE of the trajectory's camera centres and the
+    alignment (s, R, t) that phase 8 reuses."""
+    from lpslam_tpu_torch.eval.ate import align_umeyama
+
+    fids, est = [], []
+    for fid, pose, _ in engine.trajectory:
+        if pose is not None:
+            fids.append(fid)
+            est.append(-np.asarray(pose.R).T @ np.asarray(pose.t))
+    est = np.asarray(est, np.float64)
+    fids = np.asarray(fids)
+    s, R, t = align_umeyama(est, gt[fids], with_scale=True)
+    err = np.linalg.norm(s * est @ R.T + t - gt[fids], axis=1)
+    bins = fids // 100
+    return {"tracked": len(fids), "ate_m": float(np.sqrt(np.mean(err ** 2))),
+            "err_by_100_frames": [round(float(err[bins == b].mean()), 4)
+                                  for b in np.unique(bins)],
+            "align": (s, R, t)}
+
+
+def kidnap(tracker, lost, entry_cls, rectified, gt, align, to_np, blind_pose,
+           frames=KIDNAP_FRAMES):
+    """Kidnap the engine before each frame: status LOST and a pose prior
+    that sees no landmark (`blind_pose(pose)`: the same rotation, 1e4 map
+    units back along the optical axis, so every landmark lies behind the
+    camera). The frame then goes through the host path: the LOST branch's
+    wide-window matching finds nothing, and _bow_relocalize ->
+    relocalize_with_candidates must place it. Returns one record per frame:
+    whether relocalization verified a pose, and the distance of the
+    engine's camera centre, after the phase-7 alignment, from ground truth.
+    (With the engine's own last pose as the prior, the wide-window matching
+    of the JAX package converges to a wrong pose 0.4-2.3 m off instead.)"""
+    eng = tracker.engine
+    orig = eng.relocalize_with_candidates
+    calls = []
+
+    def spy(*a, **kw):
+        ok = orig(*a, **kw)
+        calls.append(bool(ok))
+        return ok
+
+    eng.relocalize_with_candidates = spy
+    s, R, t = align
+    out = []
+    try:
+        for f in frames:
+            eng.status = lost
+            eng.pose = blind_pose(eng.pose)
+            n0 = len(calls)
+            tracker.process_image(entry_cls(timestamp=f / LOOP_FPS, image=rectified(f)))
+            c = -to_np(eng.pose.R).T @ to_np(eng.pose.t)
+            err = float(np.linalg.norm(s * R @ c + t - gt[f]))
+            out.append({"frame": f, "relocalized": len(calls) > n0 and calls[-1],
+                        "attempted": len(calls) > n0, "err_m": err,
+                        "status": eng.status.name})
+    finally:
+        del eng.relocalize_with_candidates
+    return out
+
+
 def stereo_rig(intr):
     """The room's stereo extrinsics (right eye w.r.t. the left), as
     lpslam_tpu/eval/run_dataset.py builds them: R_rl = I, t_rl = [-b, 0, 0]."""
@@ -408,6 +548,181 @@ def run_slice(device, mode: str = "mono", levels: int = LEVELS, chunk: int = CHU
     return res
 
 
+# tools/jax_loop_reference.py on the CPU with the frames and configuration
+# of phases 7-8 (LOOP_FRAMES, LOOP_CONFIG, KIDNAP_FRAMES); sets their bounds.
+# Its relocalization fails where its fp32 DLT PnP runs on raw coordinates
+# far from the map origin (err_m then measures the blind prior); the port
+# centres the points (frontend/relocalize.py)
+JAX_LOOP_REF = {
+    "frames": 740, "tracked": 737, "keyframes": 108,
+    # accepted (k_new, candidate, n_inliers)
+    "closures": [[98, 5, 69]],
+    "ate_m_sim3": 0.42346514387465156,
+    "relocalization": [
+        {"frame": 280, "relocalized": False, "err_m": 388.66593447355353},
+        {"frame": 350, "relocalized": False, "err_m": 389.2225998824441},
+        {"frame": 420, "relocalized": False, "err_m": 390.12636556930073},
+        {"frame": 490, "relocalized": True, "err_m": 0.24683415054122326},
+    ],
+}
+
+
+def loop_ate_bound() -> float:
+    ref = JAX_LOOP_REF["ate_m_sim3"]
+    return max(1.5 * ref, ref + 0.02)
+
+
+class _Timed:
+    """Synchronized host-clock ms of each call of the wrapped functions,
+    by key; undo() restores them."""
+
+    def __init__(self, device):
+        self.ms = {}
+        self._undo = []
+        self._sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+
+    def wrap(self, owner, name, key, after=None):
+        orig = getattr(owner, name)
+
+        def timed(*a, **kw):
+            self._sync()
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            self._sync()
+            self.ms.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+            if after is not None:
+                after(out)
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, orig))
+
+    def undo(self):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo = []
+
+    def summary(self) -> dict:
+        return {k: {"n": len(v), "median_ms": float(np.median(v)), "max_ms": float(np.max(v))}
+                for k, v in self.ms.items()}
+
+
+def run_loop_room(device, raw, gt, K, grid, config=None):
+    """Phase 7: the room through VSLAMTracker.process_image, then flush().
+    Returns (result dict, tracker); raises on a failed check."""
+    from lpslam_tpu_torch.backend import ba
+    from lpslam_tpu_torch.frontend import TrackerStatus
+    from lpslam_tpu_torch.frontend.device_loop import ChunkedTracker
+    from lpslam_tpu_torch.geometry import PinholeCamera
+    from lpslam_tpu_torch.kernels.remap import remap_bilinear
+    from lpslam_tpu_torch.loop import detector
+    from lpslam_tpu_torch.pipeline import CameraQueueEntry, VSLAMTracker
+
+    config = dict(LOOP_CONFIG if config is None else config)
+    grid_d = torch.from_numpy(grid).to(device)
+
+    def rectified(t):
+        return remap_bilinear(torch.from_numpy(raw[t]).to(device, torch.float32), grid_d)
+
+    def finite(out):
+        m = out[0]
+        if not (torch.isfinite(m.kf_t).all() and torch.isfinite(m.lm_pos).all()):
+            raise AssertionError("non-finite poses or landmarks after a loop correction")
+
+    cam = PinholeCamera.make(K[0, 0], K[1, 1], K[0, 2], K[1, 2], device=device)
+    tracker = VSLAMTracker(cam, config, device=device)
+    tracker.attach_device_rectify(grid)
+    timed = _Timed(device)
+    timed.wrap(detector.LoopCloser, "add_keyframe", "bow_add")
+    timed.wrap(detector.LoopCloser, "detect", "bow_detect")
+    timed.wrap(detector.LoopCloser, "verify", "verify")
+    timed.wrap(detector, "correct_loop", "correct_loop")
+    timed.wrap(ba, "global_ba", "global_ba")
+    timed.wrap(detector.LoopCloser, "apply", "apply", after=finite)
+    timed.wrap(ChunkedTracker, "process_chunk", "chunk")
+    timed.wrap(VSLAMTracker, "_process_host", "host_frame")
+    verdicts, undo = record_closures(detector.LoopCloser)
+    reset_launches()
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    try:
+        fed = drive_room(tracker, TrackerStatus.TRACKING, CameraQueueEntry, raw, rectified)
+        sync()
+    finally:
+        undo()
+        timed.undo()
+    loop_s = time.perf_counter() - t0
+    launches = read_launches()
+    eng = tracker.engine
+    met = room_metrics(eng, gt)
+    times = timed.summary()
+    extractions = sum(times.get(k, {"n": 0})["n"] for k in ("chunk", "host_frame"))
+    lc = tracker.loop_closer
+    closures = [v[:2] + v[3:4] for v in verdicts if v[4]]
+    res = {
+        "frames": fed,
+        "tracked": met["tracked"],
+        "tracked_fraction": met["tracked"] / fed,
+        "keyframes": eng.n_keyframes,
+        "landmarks": eng.n_landmarks,
+        "closures": closures,
+        "verdicts_named_candidate": len(verdicts),
+        "ate_m_sim3": met["ate_m"],
+        "err_by_100_frames": met["err_by_100_frames"],
+        "state": eng.status.name,
+        "fps": fed / loop_s,
+        "loop_seconds": loop_s,
+        "times": times,
+        "bow_db_bytes": lc.db.numel() * lc.db.element_size(),
+        "vocab_bytes": sum(x.numel() * x.element_size() for x in lc.vocab),
+        "launches": launches,
+        "extractions": extractions,
+    }
+    checks = {
+        "ends TRACKING": eng.status == TrackerStatus.TRACKING,
+        "tracked >= 0.9": res["tracked_fraction"] >= 0.9,
+        "finite map": bool(torch.isfinite(eng.map.kf_t).all() and torch.isfinite(eng.map.lm_pos).all()),
+        "patch kernel on every extraction": launches["extract_patches"] == LEVELS * extractions,
+    }
+    if JAX_LOOP_REF is not None:
+        n_ref = len(JAX_LOOP_REF["closures"])
+        checks[f"closures {len(closures)} within 1 of JAX's {n_ref}, >= 1"] = (
+            len(closures) >= 1 and abs(len(closures) - n_ref) <= 1)
+        checks[f"ATE <= {loop_ate_bound():.4f} m"] = met["ate_m"] <= loop_ate_bound()
+    res["checks_failed"] = [k for k, ok in checks.items() if not ok]
+    return res, tracker, met["align"], rectified
+
+
+def run_kidnap(device, tracker, gt, align, rectified, frames=KIDNAP_FRAMES):
+    """Phase 8: kidnapped relocalization on the phase-7 map."""
+    from lpslam_tpu_torch.frontend import TrackerStatus
+    from lpslam_tpu_torch.geometry import SE3
+    from lpslam_tpu_torch.pipeline import CameraQueueEntry
+
+    far = torch.tensor([0.0, 0.0, -1e4], device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = kidnap(tracker, TrackerStatus.LOST, CameraQueueEntry, rectified, gt, align,
+                 lambda x: x.detach().cpu().numpy(), lambda pose: SE3(pose.R, far), frames)
+    seconds = time.perf_counter() - t0
+    n_ok = sum(r["relocalized"] for r in out)
+    bound = loop_ate_bound() if JAX_LOOP_REF is not None else float("inf")
+    res = {"relocalization": out, "relocalized": n_ok, "seconds": seconds,
+           "launches": read_launches()}
+    checks = {
+        ">= 3 of 4 relocalized": n_ok >= 0.75 * len(out),
+        f"each relocalized centre within {bound:.4f} m": all(
+            r["err_m"] <= bound for r in out if r["relocalized"]),
+        "patch kernel on every extraction": res["launches"]["extract_patches"] == LEVELS * len(out),
+    }
+    if JAX_LOOP_REF is not None:
+        n_ref = sum(r["relocalized"] for r in JAX_LOOP_REF["relocalization"])
+        checks[f"no fewer than JAX's {n_ref}"] = n_ok >= n_ref
+    res["checks_failed"] = [k for k, ok in checks.items() if not ok]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -451,6 +766,44 @@ def main() -> int:
               f"{res['keyframes']} keyframes, {res['landmarks']} landmarks, ATE "
               f"{res['ate_m']:.4f} m ({res['ate_aligned']}), launches {res['launches']}, "
               f"{time.perf_counter() - t0:.1f} s, on {card}")
+
+    t0 = time.perf_counter()
+    raw, gt, K, grid = render_room()
+    print(f"rendered the {len(raw)}-frame room in {time.perf_counter() - t0:.1f} s")
+    # phases 7 (twice: global BA's index_add_ atomics may reorder sums) and 8
+    # all run before a failed check raises, so one call shows the spread
+    failed = []
+    for run in (1, 2):
+        t0 = time.perf_counter()
+        res, tracker, align, rectified = run_loop_room(device, raw, gt, K, grid)
+        for name, n in res["launches"].items():
+            records[name]["launches"] += n
+        print(f"loop room run {run}: " + json.dumps(res))
+        failed += [f"phase 7 run {run}: {c}" for c in res["checks_failed"]]
+        t = res["times"]
+        print(f"phase 7 run {run}: {res['frames']} frames, {res['tracked']} tracked, "
+              f"closures {res['closures']} (JAX CPU {JAX_LOOP_REF['closures']}), ATE "
+              f"{res['ate_m_sim3']:.4f} m Sim3 (bound {loop_ate_bound():.4f}), "
+              f"{res['fps']:.2f} frames/s; median ms: BoW add "
+              f"{t['bow_add']['median_ms']:.2f}, detect {t['bow_detect']['median_ms']:.2f}, "
+              f"verify {t['verify']['median_ms']:.2f}, correct_loop "
+              f"{t.get('correct_loop', {}).get('median_ms', float('nan')):.2f}, global_ba "
+              f"{t.get('global_ba', {}).get('median_ms', float('nan')):.2f}; BoW db "
+              f"{res['bow_db_bytes']} B, vocabulary {res['vocab_bytes']} B; "
+              f"{time.perf_counter() - t0:.1f} s, on {card}")
+    t0 = time.perf_counter()
+    res = run_kidnap(device, tracker, gt, align, rectified)
+    for name, n in res["launches"].items():
+        records[name]["launches"] += n
+    print("kidnap: " + json.dumps(res))
+    failed += [f"phase 8: {c}" for c in res["checks_failed"]]
+    print(f"phase 8: {res['relocalized']}/{len(res['relocalization'])} kidnapped frames "
+          f"relocalized (JAX CPU "
+          f"{sum(r['relocalized'] for r in JAX_LOOP_REF['relocalization'])}), errors "
+          f"{[round(r['err_m'], 4) for r in res['relocalization']]} m, "
+          f"{time.perf_counter() - t0:.1f} s, on {card}")
+    if failed:
+        raise AssertionError(f"checks failed: {failed}")
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")
 
     print(json.dumps({"kernels": list(records.values())}))

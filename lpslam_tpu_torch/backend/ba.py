@@ -1,6 +1,5 @@
 """Bundle adjustment: Levenberg-Marquardt with Schur-complement reduction
-(port of lpslam_tpu/backend/ba.py, minus the ablation env hooks and
-global_ba).
+(port of lpslam_tpu/backend/ba.py, minus the ablation env hooks).
 
 Two solvers with the JAX package's switch at C*N*P = 2**25:
 
@@ -408,3 +407,12 @@ def _local_ba_impl(m, cam: PinholeCamera, window: int, iters: int,
     kf_R = scatter_drop(m.kf_R, scatter_idx, res.cam_R)
     kf_t = scatter_drop(m.kf_t, scatter_idx, res.cam_t)
     return m._replace(kf_R=kf_R, kf_t=kf_t, lm_pos=lm_pos), res
+
+
+def global_ba(m, cam: PinholeCamera, iters: int = 10):
+    """Full-map bundle adjustment, the post-loop global BA: ``local_ba``
+    with the window set to the whole keyframe capacity (temporal window,
+    first two keyframes fixed as the gauge). At the operating point
+    (K=128, N=1200, M=24576) C*N*P exceeds 2**25, so ``bundle_adjust``
+    routes it to ``bundle_adjust_cg``. Returns (updated MapStore, BAResult)."""
+    return _local_ba_impl(m, cam, m.kf_R.shape[0], iters)

@@ -5,6 +5,8 @@ NamedTuple's field names (for a JAX NamedTuple ``t``:
 ``{k: np.asarray(v) for k, v in t._asdict().items()}``) and build the port's
 NamedTuple on `device`. uint32 descriptor words are viewed as int32 bit
 patterns. ``*_to_numpy`` go back, with descriptors viewed as uint32 again.
+A vocabulary crosses as its words and idf; the port rebuilds its float32
+``words_pm1`` from the words (JAX keeps int8), so it is not carried.
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ import torch
 
 from .geometry.camera import PinholeCamera
 from .geometry.se3 import SE3
+from .geometry.sim3 import Sim3
 from .kernels.orb import OrbFeatures
+from .loop.vocab import Vocabulary, vocabulary_from_words
 from .mapstore.store import MapStore
 
 _DESC_FIELDS = ("lm_desc", "kf_desc", "desc")
@@ -74,3 +78,19 @@ def camera_from_numpy(d: dict, device) -> PinholeCamera:
 
 def camera_to_numpy(cam: PinholeCamera) -> dict:
     return _to_numpy(cam)
+
+
+def sim3_from_numpy(d: dict, device) -> Sim3:
+    return _from_numpy(Sim3, d, device)
+
+
+def sim3_to_numpy(S: Sim3) -> dict:
+    return _to_numpy(S)
+
+
+def vocab_from_numpy(d: dict, device) -> Vocabulary:
+    return vocabulary_from_words(d["words"], d["idf"], device)
+
+
+def vocab_to_numpy(v: Vocabulary) -> dict:
+    return {"words": v.words.cpu().numpy().view(np.uint32), "idf": v.idf.cpu().numpy()}

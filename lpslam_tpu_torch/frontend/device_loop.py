@@ -14,6 +14,8 @@ scan takes them on the device under ``lax.cond``. The chunk boundary runs
 the keyframe cull/compaction. Capturing the non-keyframe step in a CUDA
 graph is later work.
 
+``invalidate_carry`` and ``discard_carry`` hand control back from the host
+(relocalization, loop-closure pose resync, host-path frames) to the loop.
 The carry's pose and velocity stay on the device; its counters (status,
 frame ids, inliers at the last keyframe) are host ints.
 """
@@ -327,8 +329,23 @@ class ChunkedTracker:
                         max_cull=max_cull, force_free=max_cull,
                     )
                     e.map = res.map
-                    e._pending_compacts.append(res)
+                    e._queue_compaction(res)
         self._pending_carry = carry
+
+    def invalidate_carry(self) -> None:
+        """Call after changing the engine's host state (pose, status,
+        keyframe counters) outside the chunk loop, e.g. a relocalization or
+        a loop-closure pose resync: folds the pending carry's counters into
+        the engine, then makes the next chunk rebuild its carry from the
+        engine."""
+        self.sync()
+        self._pending_carry = None
+
+    def discard_carry(self) -> None:
+        """Drop the pending carry without folding it into the engine: the
+        host path ran frames after the last chunk, so the engine's state is
+        the newer one."""
+        self._pending_carry = None
 
     def sync(self) -> None:
         """Fold the end-of-chunk counters into the engine's host state."""

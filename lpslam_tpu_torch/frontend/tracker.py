@@ -8,8 +8,17 @@ two-view initialization and the async-mapping double buffer.
 
 The depth trackers (frontend/stereo.py) subclass ``MonoTracker`` through
 its hooks: ``_needs_two_frames``, ``_try_initialize(feats, aux)`` and
-``_make_keyframe_map``. Left out of this port for now: relocalization,
-navigation priors and keypoint masks.
+``_make_keyframe_map``. ``relocalize_with_candidates`` places a LOST engine
+against candidate keyframes (frontend/relocalize.py); the pipeline tracker
+(pipeline/trackers.py) supplies BoW candidates. Left out of this port for
+now: navigation priors, keypoint masks and localization-only mode
+(``mapping_enabled``).
+
+Compaction results are queued with a CUDA event recorded right behind the
+compaction on the current stream (``_queue_compaction``): "ready" means that
+event has completed, the meaning JAX's ``is_ready()`` has for the culled
+count. On the CPU the work is done when the call returns, so a queued result
+is always ready.
 """
 from __future__ import annotations
 
@@ -500,7 +509,7 @@ class MonoTracker:
         else:
             self.map = m2
             if res is not None:
-                self._pending_compacts.append(res)
+                self._queue_compaction(res)
             if self.cfg.local_ba_window > 0:
                 k = self.map.n_kf - 1
                 self.pose = SE3(_row(self.map.kf_R, k), _row(self.map.kf_t, k))
@@ -512,7 +521,7 @@ class MonoTracker:
         self._pending_map = None
         self.map = m2
         if res is not None:
-            self._pending_compacts.append(res)
+            self._queue_compaction(res)
 
     def _compact(self, force_min_one: bool = False):
         res = cull_and_compact(
@@ -522,24 +531,70 @@ class MonoTracker:
             force_min_one=force_min_one,
         )
         self.map = res.map
-        self._pending_compacts.append(res)
+        self._queue_compaction(res)
 
-    def _drain_compact_stats(self):
+    def _queue_compaction(self, res):
+        """Queue a CompactResult for a later read of its culled count, with
+        the event that marks it ready (None on the CPU)."""
+        ev = None
+        if res.n_kf_culled.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+        self._pending_compacts.append((res, ev))
+
+    def _drain_compact_stats(self, only_ready: bool = False):
         """Read back n_culled of queued compactions, adjust the host keyframe
-        count and record slot permutations for side tables."""
-        for res in self._pending_compacts:
+        count and record slot permutations for side tables. With only_ready,
+        results whose event has not completed stay queued (no blocking)."""
+        rest = []
+        for res, ev in self._pending_compacts:
+            if only_ready and ev is not None and not ev.query():
+                rest.append((res, ev))
+                continue
             n = int(res.n_kf_culled)
             if n > 0:
                 self._kf_count -= n
                 self._compactions.append(
                     (res.kf_order.cpu().numpy(), int(res.map.n_kf))
                 )
-        self._pending_compacts = []
+        self._pending_compacts = rest
+
+    @property
+    def mapping_in_flight(self) -> bool:
+        """True while an async keyframe pipeline result is not adopted yet or
+        a queued compaction is not ready: loop-closure bookkeeping waits for
+        a quiescent map so keyframe slot indices stay put."""
+        if self._pending_map is not None:
+            return True
+        return any(ev is not None and not ev.query() for _, ev in self._pending_compacts)
 
     def drain_compactions(self) -> list:
         self._drain_compact_stats()
         ev, self._compactions = self._compactions, []
         return ev
+
+    def relocalize_with_candidates(self, feats: OrbFeatures, candidate_kfs,
+                                   min_inliers: int = 20) -> bool:
+        """Geometric relocalization against candidate keyframes (BoW
+        candidates -> PnP -> pose refinement -> inlier gate). On success the
+        best verified pose is adopted; the next frame's wide-window LOST
+        matching confirms it and flips the state back to TRACKING."""
+        from .relocalize import relocalize_attempt
+
+        best_inl, best_pose = 0, None
+        for k in candidate_kfs:
+            res = relocalize_attempt(
+                self.map, self.cam, feats.desc, feats.xy, feats.valid, int(k),
+                min_inliers=min_inliers,
+            )
+            n, ok = torch.stack([res.n_inliers, res.ok.to(torch.int32)]).tolist()
+            if ok and n > best_inl:
+                best_inl, best_pose = n, res.pose
+        if best_pose is None:
+            return False
+        self.pose = best_pose
+        self.velocity = se3_identity(self.device)
+        return True
 
     def _record(self, pose):
         self.trajectory.append((

@@ -22,6 +22,12 @@ one; run them there with
   and 0.60-0.86% of the bits differing; ``use_pallas=True`` gave equal
   level-0 keypoints on all ten, angle differences up to 2.9e-5 rad and
   0.25-0.36% of the bits differing (at most 7 on one keypoint).
+- Loop closing on the card against the same calls on the CPU: the shipped
+  vocabulary's word ids and tf counts bit-equal (an fp32 ±1 product, exact
+  with TF32 off); the normalized BoW vector within 1e-6 relative (its norm
+  sums in another order: 2.7e-7 relative at one of 31,707 entries on an H100
+  80GB HBM3 at 700 W); ``correct_loop`` on a synthetic circle map within 1e-3
+  (the JAX parity bound of tests/test_torch_loop.py).
 """
 import numpy as np
 import pytest
@@ -29,6 +35,8 @@ import torch
 
 from lpslam_tpu_torch.io.synthetic import make_texture
 from lpslam_tpu_torch.kernels import fast_nms, orb, patch
+from lpslam_tpu_torch.loop import detector, vocab
+from lpslam_tpu_torch.mapstore import store
 
 torch.set_num_threads(1)
 
@@ -105,3 +113,73 @@ def test_extract_orb_on_card_matches_cpu(cuda_device, use_pallas):
             (got.desc[b, :k0].cpu().numpy()[m] ^ want.desc[b, :k0].numpy()[m]).view(np.uint8)
         )
         assert bits.mean() < 0.02, bits.mean()
+
+
+def test_bow_on_card_matches_cpu(cuda_device):
+    from lpslam_tpu_torch.pipeline.trackers import SHIPPED_VOCAB
+
+    v_cpu = vocab.load_vocabulary(SHIPPED_VOCAB, "cpu")
+    v_gpu = vocab.load_vocabulary(SHIPPED_VOCAB, cuda_device)
+    rng = np.random.default_rng(3)
+    words = v_cpu.words.numpy()
+    desc = rng.integers(0, 2**32, (1200, 8), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    desc[:200] = words[rng.integers(0, len(words), 200)]      # exact words
+    desc[200:260] = 0                                          # one tied descriptor
+    d_cpu = torch.from_numpy(desc)
+    valid = torch.from_numpy(rng.random(1200) < 0.9)
+    ids_cpu = vocab.assign_words(v_cpu, d_cpu, valid)
+    ids_gpu = vocab.assign_words(v_gpu, d_cpu.to(cuda_device), valid.to(cuda_device))
+    assert torch.equal(ids_gpu.cpu(), ids_cpu)
+    tf = torch.bincount(ids_cpu[ids_cpu >= 0].long(), minlength=len(words))
+    b_cpu = vocab.bow_vector(v_cpu, d_cpu, valid)
+    b_gpu = vocab.bow_vector(v_gpu, d_cpu.to(cuda_device), valid.to(cuda_device)).cpu()
+    assert torch.equal(b_gpu > 0, tf > 0)
+    torch.testing.assert_close(b_gpu, b_cpu, rtol=1e-6, atol=0)
+
+
+def _circle_map(device, K=12, N=64, M=600, seed=0):
+    """Keyframes on a circle looking outward at a ring of landmarks; each
+    keyframe observes the landmarks in front of it."""
+    rng = np.random.default_rng(seed)
+    m = store.empty_map(store.MapConfig(K + 4, M, N), device)
+    ang = rng.uniform(0, 2 * np.pi, M)
+    pts = np.stack([6 * np.sin(ang), rng.uniform(-1, 1, M), -6 * np.cos(ang)], 1)
+    m = m._replace(lm_pos=torch.tensor(pts, dtype=torch.float32, device=device),
+                   lm_valid=torch.ones(M, dtype=torch.bool, device=device),
+                   lm_first_kf=torch.tensor(rng.integers(0, K, M), dtype=torch.int32,
+                                            device=device),
+                   n_lm=torch.tensor(M, dtype=torch.int32, device=device))
+    for k in range(K):
+        a = 2 * np.pi * k / K + 0.02 * k
+        c = np.array([np.sin(a), 0.0, -np.cos(a)])
+        z = c / np.linalg.norm(c)
+        x = np.array([np.cos(a), 0.0, np.sin(a)])
+        R_wc = np.stack([x, np.cross(z, x), z], 1)
+        R, t = R_wc.T, -R_wc.T @ c
+        seen = np.flatnonzero((pts - c) @ z > 2.0)[:N]
+        lm = np.full(N, -1, np.int32)
+        lm[:len(seen)] = seen
+        m = store.insert_keyframe_slots(
+            m, torch.tensor(R, dtype=torch.float32, device=device),
+            torch.tensor(t, dtype=torch.float32, device=device),
+            torch.zeros((N, 2), device=device),
+            torch.zeros((N, 8), dtype=torch.int32, device=device),
+            torch.tensor(lm >= 0, device=device), torch.tensor(lm, device=device), k)
+    return m
+
+
+def test_correct_loop_on_card_matches_cpu(cuda_device):
+    m_cpu = _circle_map("cpu")
+    m_gpu = _circle_map(cuda_device)
+    ang = torch.tensor([0.02, -0.03, 0.01])
+    from lpslam_tpu_torch.geometry.sim3 import sim3_exp
+
+    S = sim3_exp(torch.cat([torch.tensor([0.1, -0.05, 0.2]), ang, torch.tensor([0.05])]))
+    out_cpu = detector.correct_loop(m_cpu, 11, 1, S.R, S.t, S.s, min_shared=5)
+    out_gpu = detector.correct_loop(m_gpu, 11, 1, S.R.to(cuda_device), S.t.to(cuda_device),
+                                    S.s.to(cuda_device), min_shared=5)
+    assert (out_cpu.kf_t - m_cpu.kf_t).abs().max() > 1e-2     # it did move
+    for a, b in ((out_gpu.kf_R, out_cpu.kf_R), (out_gpu.kf_t, out_cpu.kf_t),
+                 (out_gpu.lm_pos, out_cpu.lm_pos)):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3)

@@ -1,0 +1,253 @@
+"""Port parity, the loop-closing slice: the pipeline tracker
+(pipeline/trackers.py::VSLAMTracker) in lpslam_tpu and lpslam_tpu_torch on
+the same closed 120x160 orbit, through the chunked path with loop closure
+and the shipped vocabulary.
+
+The 48-frame toy orbit has few keyframes in revisited territory, so both
+trackers get the relaxed gates of tests/test_loop_e2e.py (min_gap 6,
+min_score 0.12, consistency 1), patched into `_loop_cfg` identically.
+Margins: at least one accepted closure, on the same (k_new, candidate) pair
+within +-1; keyframes within +-1; tracked frames within 1; Sim3 ATE
+<= max(1.5 x JAX, JAX + 0.02 m).
+
+Also the asynchronous loop worker (a verdict in flight is remapped through
+a compaction that lands meanwhile, or dropped when a party was culled;
+flush() lands every verdict), the options of later slices refusing to run,
+and the TrackerResult pose conversion.
+"""
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from lpslam_tpu.eval import ate_rmse
+from lpslam_tpu.io.synthetic import make_sequence
+
+from lpslam_tpu_torch.geometry import PinholeCamera as TCam
+from lpslam_tpu_torch.loop.detector import LoopResult, LoopVerdict
+from lpslam_tpu_torch.pipeline import ConfigError, VSLAMTracker
+from lpslam_tpu_torch.pipeline.queues import CameraQueueEntry
+from lpslam_tpu_torch.pipeline.trackers import _NOT_PORTED
+
+import chip_smoke
+
+torch.set_num_threads(1)
+
+CONFIG = {"mode": "mono", "keypoints": 256, "levels": 2, "max_keyframes": 16,
+          "max_landmarks": 2048, "loop_closure": True, "loop_async": False,
+          "chunk_size": 8, "loop_global_ba_iters": 2}
+
+
+def _run(pkg, seq, config=CONFIG):
+    if pkg == "jax":
+        from lpslam_tpu.geometry import PinholeCamera
+        from lpslam_tpu.loop.detector import LoopCloser, LoopConfig
+        from lpslam_tpu.pipeline.queues import CameraQueueEntry as Entry
+        from lpslam_tpu.pipeline.trackers import VSLAMTracker as Tracker
+
+        cam = PinholeCamera.make(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2])
+        tr = Tracker(cam, dict(config))
+    else:
+        from lpslam_tpu_torch.loop.detector import LoopCloser, LoopConfig
+
+        Entry = CameraQueueEntry
+        cam = TCam.make(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], device="cpu")
+        tr = VSLAMTracker(cam, dict(config), device="cpu")
+    tr._loop_cfg = lambda: LoopConfig(min_gap=6, min_score=0.12, consistency=1,
+                                      global_ba_iters=config["loop_global_ba_iters"])
+    verdicts, undo = chip_smoke.record_closures(LoopCloser)
+    try:
+        for t, img in enumerate(seq.images):
+            tr.process_image(Entry(timestamp=t / 20.0, image=img))
+        tr.flush()
+    finally:
+        undo()
+        tr.stop()
+    est, gt = [], []
+    for fid, pose, _ in tr.engine.trajectory:
+        if pose is not None:
+            est.append(-np.asarray(pose.R).T @ np.asarray(pose.t))
+            gt.append(np.asarray(seq.poses_wc[fid].t))
+    m = tr.engine.map
+    return {
+        "closures": [v[:2] for v in verdicts if v[4]],
+        "tracked": len(est),
+        "keyframes": tr.engine.n_keyframes,
+        "ate": ate_rmse(np.asarray(est), np.asarray(gt))[0],
+        "state": tr.engine.status.name,
+        "finite": bool(np.isfinite(np.asarray(m.kf_t)).all()
+                       and np.isfinite(np.asarray(m.lm_pos)).all()),
+        "tracker": tr,
+    }
+
+
+@pytest.fixture(scope="module")
+def orbit():
+    return make_sequence(num_frames=48, h=120, w=160, seed=1, motion="orbit", fx=115.0)
+
+
+def test_loop_slice_matches_jax(orbit):
+    ref = _run("jax", orbit)
+    ours = _run("torch", orbit)
+    assert ref["closures"], ref                 # the reference closes here
+    assert ours["closures"], ours
+    assert any(abs(a - c) <= 1 and abs(b - d) <= 1
+               for a, b in ours["closures"] for c, d in ref["closures"]), (ours, ref)
+    assert abs(ours["keyframes"] - ref["keyframes"]) <= 1, (ours, ref)
+    assert ours["tracked"] >= ref["tracked"] - 1, (ours, ref)
+    assert ours["ate"] <= max(1.5 * ref["ate"], ref["ate"] + 0.02), (ours, ref)
+    assert ours["state"] == ref["state"] == "TRACKING"
+    assert ours["finite"]
+
+
+def test_async_loop_worker_closes_and_flush_lands_every_verdict(orbit):
+    res = _run("torch", orbit, dict(CONFIG, loop_async=True))
+    tr = res["tracker"]
+    assert res["closures"], res
+    assert res["finite"] and res["state"] == "TRACKING"
+    assert not tr._loop_verdicts and tr._loop_perm_log == []
+    assert tr._loop_exec is None                # stop() released the worker
+
+
+class _StubCloser:
+    """verify() waits for `gate`, so its verdict is in flight while the test
+    lands a compaction."""
+
+    def __init__(self, cand=2):
+        self.gate = threading.Event()
+        self.cand = cand
+        self.applied, self.remapped = [], []
+
+    def add_keyframe(self, m, k):
+        pass
+
+    def verify(self, m, k):
+        assert self.gate.wait(30)
+        return LoopVerdict(LoopResult(True, self.cand, 50, 20), k, object())
+
+    def remap(self, order, n_kf):
+        self.remapped.append((list(order), n_kf))
+
+    def apply(self, m, verdict, cam=None):
+        self.applied.append(verdict)
+        return m, verdict.result
+
+
+def _bare_tracker():
+    cam = TCam.make(230.0, 230.0, 160.0, 120.0, device="cpu")
+    tr = VSLAMTracker(cam, {"mode": "mono", "keypoints": 64, "max_keyframes": 8,
+                            "max_landmarks": 256, "loop_closure": True}, device="cpu")
+    tr._loop_resync_pose = lambda: None
+    tr.loop_closer = _StubCloser()
+    return tr
+
+
+@pytest.mark.parametrize("order,n_after,want", [
+    # old slots [0,2,3,5,6,7] survive in that order: 7 -> 5, 6 -> 4, 2 -> 1
+    ([0, 2, 3, 5, 6, 7, 1, 4], 6, [(5, 1), (4, 1)]),
+    # slot 2 (the candidate) was culled: both verdicts are dropped
+    ([0, 1, 3, 4, 5, 6, 7, 2], 7, []),
+])
+def test_verdict_in_flight_through_compaction(order, n_after, want):
+    tr = _bare_tracker()
+    stub = tr.loop_closer
+    tr._loop_submit(7)
+    tr._loop_submit(6)
+    # a compaction lands while both verifications are in flight
+    tr.engine._compactions.append((np.array(order), n_after))
+    tr._sync_compactions()
+    assert len(tr._loop_perm_log) == 1
+    stub.gate.set()
+    tr.flush()
+    assert stub.remapped == [(order, n_after)]
+    # flush landed both verdicts, in order, with remapped slots
+    assert [(v.k_new, v.result.candidate) for v in stub.applied] == want
+    assert not tr._loop_verdicts and tr._loop_perm_log == []
+    tr.stop()
+    assert tr._loop_exec is None
+
+
+def test_verdict_epoch_skips_perms_seen_before_submission():
+    tr = _bare_tracker()
+    stub = tr.loop_closer
+    tr._loop_perm_log = [(np.array([1, 2, 3]), 3),   # before the verdict
+                         (np.array([0, 2, 1]), 3)]   # after it
+    v = LoopVerdict(LoopResult(True, 1, 50, 20), 2, object())
+    assert tr._loop_apply(v, epoch=1) is True
+    assert (stub.applied[0].k_new, stub.applied[0].result.candidate) == (1, 2)
+
+
+@pytest.mark.parametrize("name", sorted(_NOT_PORTED))
+def test_options_of_later_slices_refuse(name):
+    default = VSLAMTracker.schema.defaults()[name]
+    if isinstance(default, bool):
+        value = not default
+    elif isinstance(default, float):
+        value = default + 1.0
+    else:
+        value = "x"
+    cam = TCam.make(100.0, 100.0, 80.0, 60.0, device="cpu")
+    with pytest.raises(NotImplementedError, match=name):
+        VSLAMTracker(cam, {name: value}, device="cpu")
+
+
+def test_schema_and_unported_calls():
+    cam = TCam.make(100.0, 100.0, 80.0, 60.0, device="cpu")
+    with pytest.raises(ConfigError):
+        VSLAMTracker(cam, {"no_such_option": 1}, device="cpu")
+    with pytest.raises(ConfigError):
+        VSLAMTracker(cam, {"keypoints": "many"}, device="cpu")
+    with pytest.raises(ValueError):
+        VSLAMTracker(cam, {"mode": "sonar"}, device="cpu")
+    tr = VSLAMTracker(cam, {"_comment": "ignored", "keypoints": 64.0}, device="cpu")
+    assert tr.cfg["keypoints"] == 64
+    entry = CameraQueueEntry(0.0, np.zeros((120, 160), np.float32))
+    with pytest.raises(NotImplementedError):
+        tr.process_image(entry, nav_odom=(np.zeros(3), np.eye(3)))
+    for call in (lambda: tr.get_features(), lambda: tr.save_map("m"),
+                 lambda: tr.set_mapping_mode(False), lambda: tr.get_occupancy_map(),
+                 lambda: tr.add_laser_scan(None), lambda: tr.export_csv("x")):
+        with pytest.raises(NotImplementedError):
+            call()
+    assert tr.status()["state"] == "NOT_INITIALIZED"
+
+
+def test_vocabulary_training_refuses():
+    cam = TCam.make(100.0, 100.0, 80.0, 60.0, device="cpu")
+    tr = VSLAMTracker(cam, {"loop_closure": True, "vocab_file": "/nonexistent/v"},
+                      device="cpu")
+    tr._ensure_loop_closer()
+    assert tr.loop_closer is None
+    tr.engine._kf_count = 4
+    tr.engine.map = tr.engine.map._replace(n_kf=torch.tensor(4, dtype=torch.int32))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tr._maybe_close_loop()
+
+
+def test_tracker_result_pose_matches_jax():
+    from lpslam_tpu.geometry import frames as jfr
+    from lpslam_tpu.geometry.se3 import SE3 as JSE3
+    from lpslam_tpu.pipeline import trackers as jtr
+    from lpslam_tpu_torch.geometry import frames as tfr
+    from lpslam_tpu_torch.geometry.se3 import SE3 as TSE3
+    from lpslam_tpu_torch.pipeline import trackers as ttr
+
+    rng = np.random.default_rng(3)
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    R = (q * np.sign(np.linalg.det(q))).astype(np.float32)
+    t = rng.normal(size=3).astype(np.float32)
+    for a, b in zip(ttr.create_tracker_result_pose(R, t), jtr.create_tracker_result_pose(R, t)):
+        np.testing.assert_allclose(a, b, atol=1e-6)
+    np.testing.assert_array_equal(ttr._sigma_to_lpslam([1, 2, 3]), jtr._sigma_to_lpslam([1, 2, 3]))
+    # the frame conversions, on tensors and on numpy arrays
+    v = rng.normal(size=(5, 3)).astype(np.float32)
+    for f in ("lpslam_to_optical", "optical_to_lpslam"):
+        np.testing.assert_array_equal(getattr(tfr, f)(torch.from_numpy(v)).numpy(),
+                                      np.asarray(getattr(jfr, f)(v)))
+        np.testing.assert_array_equal(getattr(tfr, f)(v), np.asarray(getattr(jfr, f)(v)))
+    for f in ("se3_lpslam_to_optical", "se3_optical_to_lpslam"):
+        a = getattr(tfr, f)(TSE3(torch.from_numpy(R), torch.from_numpy(t)))
+        b = getattr(jfr, f)(JSE3(R, t))
+        np.testing.assert_allclose(a.R.numpy(), np.asarray(b.R), atol=1e-7)
+        np.testing.assert_allclose(a.t.numpy(), np.asarray(b.t), atol=1e-7)
