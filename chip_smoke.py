@@ -6,28 +6,45 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
 1. require a CUDA card; print `nvidia-smi`'s name and power limit;
 2. build the hand-written CUDA kernels from csrc/, one nvcc per source, all
    started together (timed);
-3. the patch kernel, 3b. the FAST+NMS kernel, each against its plain
-   PyTorch version on the card, at the shapes the main paths give it plus
-   border, tail and small-level cases; must be bit-equal; mean times of both
-   over CUDA events after warm-up;
+3. the patch kernel, 3b. the FAST+NMS kernel in both forms (fixed ceiling,
+   and each frame's own ceiling with its max pass), each against its plain
+   PyTorch version on the card, at the shapes the main paths give it (B = 16
+   per level, B = 1 and 2 at 480x640) plus border, tail, small-level and
+   flat-frame cases; must be bit-equal. Each kernel is timed three ways:
+   the device time of the kernel alone (a CUDA graph of launches replayed
+   between two events; on the same input again, which the 50 MB L2 may
+   hold, and rotating over inputs that exceed it), the host cost of one
+   wrapper call (host clock over un-synchronized calls), and the CUDA-event
+   mean of wrapper calls beside the plain version's. Its bound is the larger
+   of bytes (each input read once, each output written once) over 3.35 TB/s
+   and operations over 33.5 T/s (the card's fp32 rate outside the tensor
+   cores, 67 TFLOP/s, counts an FMA as two; these kernels have none); the
+   FAST operations are counted on the timed images (`fast_operations`);
 4. the monocular slice at the reference operating point (640x480 ray-cast
-   room with lens distortion, 1200 keypoints, 3 levels, composite FAST,
-   chunks of 16): host initialization, then 6 chunks through ChunkedTracker;
+   room with lens distortion, 1200 keypoints, 3 levels, the composite's
+   FAST score with each frame's ceiling, chunks of 16): host initialization,
+   then 6 chunks through ChunkedTracker;
 5. the stereo slice at the same width (the room's right eye 0.11 m to the
    right, rectified with rectify_maps_stereo, fused FAST kernel): host
    initialization, then 4 chunks of (16, 2, 480, 640) eye pairs;
 6. the RGB-D slice (depth maps undistorted with the gray images, fused FAST
-   kernel): host initialization, then 3 chunks.
+   kernel): host initialization, then 3 chunks;
+7. the 740-frame room with loop closure through VSLAMTracker (mono, chunks
+   of 16), twice, held to the JAX package's CPU run (JAX_LOOP_REF);
+8. kidnapped relocalization of four first-lap frames on phase 7's map.
 Each path resets the kernels' launch counters just before its
 initialization and reads them just after its loop. Checks per path: ends
 TRACKING, >= 90% frames tracked, finite poses, >= 2 keyframes inserted in
-the chunk loop, the kernels launched on every extraction, and ATE under a
-bound: Sim3-aligned < 0.10 m for mono; aligned without scale (depth fixes
+the chunk loop, the kernels launched on every extraction (the patch and
+score kernels once per level; on the mono paths, phases 4, 7 and 8, the max
+pass too), and ATE under a bound: Sim3-aligned < 0.10 m for mono; aligned without scale (depth fixes
 the scale) under max(1.5 x, + 0.02 m) of the JAX package's CPU run on the
 same frames for stereo and RGB-D (JAX_CPU_ATE).
 
-The line before the last is the per-kernel JSON record (launches summed
-over the paths); the last line is {"ok": true, "device": {...}}.
+The line before the last is the per-kernel JSON record: launches summed
+over the paths; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
+three levels at B = 16; `enqueue_us` the mean over them; `levels` the
+per-level and B = 1 readings. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -227,6 +244,106 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(launches, replays: int = 20) -> float:
+    """Device time of one kernel launch: the callables (each one launch, no
+    host read) are captured into a CUDA graph, and the graph is replayed
+    between two events, so no host work lies between the launches."""
+    for fn in launches:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in launches:
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * len(launches))
+
+
+def device_times(launch_on, make_inputs, set_bytes: int, n: int = 20):
+    """(warm, cold) device ms of a kernel: `launch_on(inputs)` launches it.
+    Warm repeats one input set, as a caller finds an image the blur has just
+    written; cold rotates over enough sets to exceed twice the 50 MB L2."""
+    sets = [make_inputs() for _ in range(max(2, -(-100_000_000 // set_bytes)))]
+    warm = graph_ms([lambda: launch_on(sets[0])] * n)
+    cold = graph_ms([(lambda x=x: launch_on(x)) for x in sets] * -(-n // len(sets)))
+    return warm, cold
+
+
+def enqueue_us(fn, n: int = 200) -> float:
+    """Host cost of one wrapper call: host clock over un-synchronized calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+HBM_BYTES_PER_S = 3.35e12
+# fp32 outside the tensor cores: 67 TFLOP/s counts an FMA as two operations
+FP32_OPS_PER_S = 33.5e12
+
+
+def bound_of(n_bytes: float, n_ops: float = 0.0):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def patch_bytes(img, xy) -> int:
+    """Bytes the patch kernel must move for these keypoints: the image pixels
+    that some window covers (the union of the windows, from a 2-D difference
+    array of their corners), the keypoints, and the output."""
+    from lpslam_tpu_torch.kernels.patch import PATCH, _corners
+
+    b, h, w = img.shape
+    x0, y0 = _corners(xy, h, w)
+    frame = torch.arange(b, device=img.device)[:, None].expand_as(x0)
+    cover = torch.zeros((b, h + 1, w + 1), dtype=torch.int32, device=img.device)
+    for dy, dx, sign in ((0, 0, 1), (0, PATCH, -1), (PATCH, 0, -1), (PATCH, PATCH, 1)):
+        cover.index_put_((frame, y0 + dy, x0 + dx),
+                         torch.full_like(x0, sign, dtype=torch.int32), accumulate=True)
+    covered = int((cover.cumsum(1).cumsum(2) > 0).sum())
+    return 4 * (covered + xy.numel() + b * xy.shape[1] * PATCH * PATCH)
+
+
+def fast_operations(img, thr_hi: float = 20.0, thr_lo: float = 7.0):
+    """Operations the FAST kernels need on these images, (score kernel, max
+    pass): every pixel 12 (blend, 3x3 maximum, select) or 1 (running max);
+    an interior pixel 20 for the compass test (4 differences, 8 compares,
+    the counts); a pixel with two bright or two dark compass taps at thr_lo
+    98 (16 differences, 32 compares and mask bits, two run tests); a thr_lo
+    corner at least 19 for its sum (9 taps, max), plus in the score kernel
+    82 for the thr_hi masks and run tests; a thr_hi corner 19 for its sum.
+    This is the work of the kernels' design (compass test, then masks), not
+    a proven least for the function, so the operation bound errs high."""
+    from lpslam_tpu_torch.kernels.fast import _interior, fast_score
+
+    b, h, w = img.shape
+    d = [torch.roll(img, (-dy, -dx), (-2, -1)) - img
+         for dx, dy in ((0, -3), (3, 0), (0, 3), (-3, 0))]
+    nb = sum((x > thr_lo).int() for x in d)
+    nd = sum((x < -thr_lo).int() for x in d)
+    interior = _interior(h, w, 3, img.device)
+    n_int = b * int(interior.sum())
+    n_cand = int((((nb >= 2) | (nd >= 2)) & interior).sum())
+    n_lo = int(fast_score(img, thr_lo)[1].sum())
+    n_hi = int(fast_score(img, thr_hi)[1].sum())
+    shared = 20 * n_int + 98 * n_cand + 19 * n_lo
+    counts = {"pixels": b * h * w, "interior": n_int, "compass_pass": n_cand,
+              "lo_corners": n_lo, "hi_corners": n_hi}
+    return 12 * b * h * w + shared + 82 * n_lo + 19 * n_hi, b * h * w + shared, counts
+
+
 def level_cases():
     """(H, W, N) per pyramid level at the operating point."""
     from lpslam_tpu_torch.kernels.orb import _level_budgets
@@ -239,33 +356,48 @@ def level_cases():
 
 def check_patch_kernel(device, seed: int = 0):
     """Kernel vs plain version at B = CHUNK for every level, plus border and
-    tail cases. Returns the kernel record (launch count filled in later)."""
+    tail cases, and at B = 1 (the host path). Returns the kernel record
+    (launch count filled in later)."""
     from lpslam_tpu_torch.kernels import patch
 
     rng = np.random.default_rng(seed)
-    ms_k = ms_p = 0.0
-    max_err = 0.0
-    for h, w, n in level_cases():
-        img = torch.from_numpy(
-            (rng.random((CHUNK, h, w)) * 255).astype(np.float32)
-        ).to(device)
-        xy = rng.uniform(0, [w, h], (CHUNK, n, 2)).astype(np.float32)
+
+    def inputs(b, h, w, n):
+        img = torch.from_numpy((rng.random((b, h, w)) * 255).astype(np.float32)).to(device)
+        xy = rng.uniform(0, [w, h], (b, n, 2)).astype(np.float32)
         # border clamps, exact .5 centres, out-of-image keypoints
         xy[:, :6] = [[0, 0], [w - 1, h - 1], [16, 16], [w - 17, h - 17],
                      [20.5, 21.5], [-3, h + 50]]
-        xy = torch.from_numpy(xy).to(device)
-        got = patch.extract_patches_cuda(img, xy)
-        want = patch.extract_patches_reference(img, xy)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"patch kernel differs at level {h}x{w}")
-        max_err = max(max_err, float((got - want).abs().max()))
-        tk = cuda_ms(lambda: patch.extract_patches_cuda(img, xy))
-        tp = cuda_ms(lambda: patch.extract_patches_reference(img, xy))
-        ms_k += tk
-        ms_p += tp
-        print(f"patch {h}x{w} B={CHUNK} N={n}: bit-equal, kernel {tk:.4f} ms, "
-              f"plain {tp:.4f} ms")
+        return img, torch.from_numpy(xy).to(device)
+
+    def launch_on(x):
+        patch.launch_patches(*x)
+
+    levels = []
+    max_err = 0.0
+    for b in (CHUNK, 1):
+        for h, w, n in level_cases():
+            img, xy = inputs(b, h, w, n)
+            got = patch.extract_patches_cuda(img, xy)
+            want = patch.extract_patches_reference(img, xy)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"patch kernel differs at level {h}x{w} B={b}")
+            max_err = max(max_err, float((got - want).abs().max()))
+            n_bytes = patch_bytes(img, xy)
+            warm, cold = device_times(
+                launch_on, lambda: (*inputs(b, h, w, n), torch.empty_like(got)), n_bytes)
+            bound, by = bound_of(n_bytes)
+            rec = {"B": b, "H": h, "W": w, "N": n, "device_ms": warm, "device_cold_ms": cold,
+                   "enqueue_us": enqueue_us(lambda: patch.extract_patches_cuda(img, xy)),
+                   "ms": cuda_ms(lambda: patch.extract_patches_cuda(img, xy)),
+                   "plain_ms": cuda_ms(lambda: patch.extract_patches_reference(img, xy)),
+                   "bytes": n_bytes, "bound_ms": bound, "bound_by": by}
+            levels.append(rec)
+            print(f"patch {h}x{w} B={b} N={n}: bit-equal, device {warm:.4f} ms (L2-warm), "
+                  f"{cold:.4f} ms (cold), bound {bound:.4f} ms ({by}), share "
+                  f"{bound / warm:.2f}; wrapper {rec['enqueue_us']:.1f} us/call, event mean "
+                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
     # tail: a keypoint count no block size divides, one frame
     img = torch.from_numpy((rng.random((1, 37, 45)) * 255).astype(np.float32)).to(device)
     xy = torch.from_numpy(rng.uniform(-5, 50, (1, 13, 2)).astype(np.float32)).to(device)
@@ -273,25 +405,46 @@ def check_patch_kernel(device, seed: int = 0):
                        patch.extract_patches_reference(img, xy)):
         raise AssertionError("patch kernel differs on the tail case")
     print("patch tail case 37x45 N=13: bit-equal")
+    return kernel_record("extract_patches", "lpslam_tpu_torch/csrc/patch.cu",
+                         "lpslam_tpu/kernels/pallas_patch.py:64", max_err, levels)
+
+
+def kernel_record(name, source, replaces, max_err, levels):
+    """A record of the `kernels` line: sums over the B = CHUNK levels."""
+    chunk = [r for r in levels if r["B"] == CHUNK]
+    total = lambda key: sum(r[key] for r in chunk)  # noqa: E731
+    ops = total("operations") if "operations" in chunk[0] else 0.0
+    bound, by = bound_of(total("bytes"), ops)
     return {
-        "name": "extract_patches",
+        "name": name,
         "route": "cuda",
-        "source": "lpslam_tpu_torch/csrc/patch.cu",
-        "replaces": "lpslam_tpu/kernels/pallas_patch.py:64",
+        "source": source,
+        "replaces": replaces,
         "launches": 0,
         "max_abs_err": max_err,
-        "ms": ms_k,
-        "plain_ms": ms_p,
+        "ms": total("ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "device_ms": total("device_ms"),
+        "device_cold_ms": total("device_cold_ms"),
+        "enqueue_us": total("enqueue_us") / len(chunk),
+        "levels": levels,
     }
 
 
 def check_fast_kernel(device, seed: int = 1):
-    """FAST+NMS kernel vs plain version: B = CHUNK at every level and B = 2
-    (the two-eye host batch) at level 0, on random, textured and edge-heavy
-    images; then levels under 80 rows, an odd 37x45, and levels a few pixels
-    over the 7 rows FAST needs, with extreme one-pixel corners on the
-    3-pixel border where the plain version's shifts wrap around. Returns the
-    kernel record (launch count filled in later)."""
+    """The FAST+NMS kernels vs their plain versions, in both forms (fixed
+    ceiling; each frame's own ceiling, with the max pass held against the
+    plain maximum too): B = CHUNK at every level and B = 1 and 2 (the host
+    batches) at level 0, on random, textured and edge-heavy images; a batch
+    whose frames have very different maxima, one of them flat; then levels
+    under 80 rows, an odd 37x45, and levels a few pixels over the 7 rows
+    FAST needs, with extreme one-pixel corners on the 3-pixel border where
+    the plain version's shifts wrap around. Times are taken on the textured
+    batch. Returns the records of the score kernel and of the max pass
+    (launch counts filled in later)."""
     from lpslam_tpu_torch.io.synthetic import make_texture
     from lpslam_tpu_torch.kernels import fast_nms
 
@@ -308,50 +461,99 @@ def check_fast_kernel(device, seed: int = 1):
             x[:, -4:, :] = rng.choice([0.0, 255.0], (b, min(4, h), w))
             x[:, :, :4] = rng.choice([0.0, 255.0], (b, h, min(4, w)))
             x[:, :, -4:] = rng.choice([0.0, 255.0], (b, h, min(4, w)))
+        if kind == "uneven":  # frame 0 flat (max s_lo = 0), the others at rising contrast
+            x *= np.linspace(0.0, 1.0, b, dtype=np.float32)[:, None, None] ** 2
         return x
 
     def check(kind, b, h, w):
         img = torch.from_numpy(image(kind, b, h, w)).to(device)
-        got = fast_nms.fast_nms_score_cuda(img)
-        want = fast_nms.fast_nms_score_reference(img)
-        torch.cuda.synchronize()
+        err = 0.0
+        for frame_ceiling in (False, True):
+            got = fast_nms.fast_nms_score_cuda(img, frame_ceiling=frame_ceiling)
+            want = fast_nms.fast_nms_score_reference(img, frame_ceiling=frame_ceiling)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"FAST+NMS kernel (frame_ceiling={frame_ceiling}) "
+                                     f"differs on {kind} B={b} {h}x{w}")
+            err = max(err, float((got - want).abs().max()))
+        got, want = fast_nms.fast_lo_max_cuda(img), fast_nms.fast_lo_max_reference(img)
         if not torch.equal(got, want):
-            raise AssertionError(f"FAST+NMS kernel differs on {kind} B={b} {h}x{w}")
-        return img, float((got - want).abs().max()), int((want > 0).sum())
+            raise AssertionError(f"FAST max pass differs on {kind} B={b} {h}x{w}")
+        return img, err, float((got - want).abs().max())
 
-    ms_k = ms_p = 0.0
-    max_err = 0.0
-    for h, w, _ in level_cases():  # timed on the textured batch
-        for kind in ("random", "edges", "textured"):
-            img, err, _ = check(kind, CHUNK, h, w)
-            max_err = max(max_err, err)
-        tk = cuda_ms(lambda: fast_nms.fast_nms_score_cuda(img))
-        tp = cuda_ms(lambda: fast_nms.fast_nms_score_reference(img))
-        ms_k += tk
-        ms_p += tp
-        print(f"fast_nms {h}x{w} B={CHUNK}: bit-equal (random/textured/edges), "
-              f"kernel {tk:.4f} ms, plain {tp:.4f} ms")
-    img, err, _ = check("textured", 2, 480, 640)
-    tk = cuda_ms(lambda: fast_nms.fast_nms_score_cuda(img))
-    tp = cuda_ms(lambda: fast_nms.fast_nms_score_reference(img))
-    print(f"fast_nms 480x640 B=2: bit-equal, kernel {tk:.4f} ms, plain {tp:.4f} ms")
+    def timed(img):
+        """Per-kernel readings on one image batch: (score kernel, max pass)."""
+        b, h, w = img.shape
+        ops_score, ops_max, counts = fast_operations(img)
+        ceiling = fast_nms.frame_lo_ceiling(fast_nms.fast_lo_max_cuda(img))
+        recs = []
+        for name, n_bytes, ops, launch_on, make, wrapper, plain in (
+            ("fast_nms_score", 8 * img.numel() + 4 * b, ops_score,
+             lambda x: fast_nms.launch_score(x[0], ceiling, x[1], 20.0, 7.0),
+             lambda: (img.clone(), torch.empty_like(img)),
+             lambda: fast_nms.fast_nms_score_cuda(img),
+             lambda: fast_nms.fast_nms_score_reference(img)),
+            ("fast_lo_max", 4 * img.numel() + 4 * b, ops_max,
+             lambda x: fast_nms.launch_lo_max(x[0], x[1], 7.0),
+             lambda: (img.clone(), torch.zeros(b, device=device)),
+             lambda: fast_nms.fast_lo_max_cuda(img),
+             lambda: fast_nms.fast_lo_max_reference(img)),
+        ):
+            warm, cold = device_times(launch_on, make, n_bytes)
+            bound, by = bound_of(n_bytes, ops)
+            rec = {"B": b, "H": h, "W": w, "device_ms": warm, "device_cold_ms": cold,
+                   "enqueue_us": enqueue_us(wrapper), "ms": cuda_ms(wrapper),
+                   "plain_ms": cuda_ms(plain, iters=10, warmup=2), "bytes": n_bytes,
+                   "operations": ops, "bound_ms": bound, "bound_by": by, "counts": counts}
+            recs.append(rec)
+            print(f"{name} {h}x{w} B={b}: device {warm:.4f} ms (L2-warm), {cold:.4f} ms "
+                  f"(cold), bound {bound:.4f} ms ({by}; {n_bytes / 1e6:.2f} MB, "
+                  f"{ops / 1e6:.1f} M operations), share {bound / warm:.2f}; wrapper "
+                  f"{rec['enqueue_us']:.1f} us/call, event mean {rec['ms']:.4f} ms, plain "
+                  f"{rec['plain_ms']:.4f} ms")
+        both = lambda: fast_nms.fast_nms_score_cuda(img, frame_ceiling=True)  # noqa: E731
+        print(f"fast_nms_score(frame_ceiling=True) {h}x{w} B={b}: wrapper "
+              f"{enqueue_us(both):.1f} us/call, event mean {cuda_ms(both):.4f} ms "
+              f"(max pass, ceiling, score kernel); {counts}")
+        return recs
+
+    levels = ([], [])
+    max_err = [0.0, 0.0]  # score kernel, max pass
+
+    def checked(kind, b, h, w):
+        img, *errs = check(kind, b, h, w)
+        max_err[:] = [max(m, e) for m, e in zip(max_err, errs)]
+        return img
+
+    kinds = ("random", "edges", "uneven", "textured")
+    for h, w, _ in level_cases():  # timed on the textured batch, the last one
+        for kind in kinds:
+            img = checked(kind, CHUNK, h, w)
+        print(f"fast_nms {h}x{w} B={CHUNK}: both forms and the max pass bit-equal "
+              f"({'/'.join(kinds)})")
+        for lv, rec in zip(levels, timed(img)):
+            lv.append(rec)
+    for b in (1, 2):
+        for kind in kinds:
+            img = checked(kind, b, 480, 640)
+        print(f"fast_nms 480x640 B={b}: both forms and the max pass bit-equal")
+        for lv, rec in zip(levels, timed(img)):
+            lv.append(rec)
+    # the operation-bound end: noise, where every pixel is a corner candidate
+    img = checked("random", CHUNK, 480, 640)
+    for lv, rec in zip(levels, timed(img)):
+        lv.append({**rec, "B": f"{CHUNK} (noise)"})
     small = [(3, 79, 97), (2, 64, 85), (1, 37, 45), (2, 7, 9), (1, 8, 8), (1, 9, 40),
-             (1, 10, 33), (1, 12, 7), (1, 1, 1)]
+             (1, 10, 33), (1, 12, 7), (1, 1, 1), (2, 130, 121), (1, 65, 241)]
     for b, h, w in small:
-        for kind in ("random", "textured", "edges"):
-            max_err = max(max_err, check(kind, b, h, w)[1])
+        for kind in kinds:
+            checked(kind, b, h, w)
     print("fast_nms small levels " + ", ".join(f"{b}x{h}x{w}" for b, h, w in small)
           + ": bit-equal")
-    return {
-        "name": "fast_nms_score",
-        "route": "cuda",
-        "source": "lpslam_tpu_torch/csrc/fast_nms.cu",
-        "replaces": "lpslam_tpu/kernels/pallas_fast.py:111",
-        "launches": 0,
-        "max_abs_err": max_err,
-        "ms": ms_k,
-        "plain_ms": ms_p,
-    }
+    return (kernel_record("fast_nms_score", "lpslam_tpu_torch/csrc/fast_nms.cu",
+                          "lpslam_tpu/kernels/pallas_fast.py:111", max_err[0], levels[0]),
+            kernel_record("fast_lo_max", "lpslam_tpu_torch/csrc/fast_nms.cu",
+                          "lpslam_tpu/kernels/pallas_fast.py:111", max_err[1], levels[1]))
 
 
 def _kernel_counters():
@@ -361,13 +563,14 @@ def _kernel_counters():
 
 
 def reset_launches():
-    for k in _kernel_counters():
-        k.LAUNCHES = 0
+    fast_nms, patch = _kernel_counters()
+    fast_nms.LAUNCHES = fast_nms.MAX_LAUNCHES = patch.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     fast_nms, patch = _kernel_counters()
-    return {"fast_nms_score": fast_nms.LAUNCHES, "extract_patches": patch.LAUNCHES}
+    return {"fast_nms_score": fast_nms.LAUNCHES, "fast_lo_max": fast_nms.MAX_LAUNCHES,
+            "extract_patches": patch.LAUNCHES}
 
 
 def init_slice(device, mode: str = "mono", h: int = 480, w: int = 640,
@@ -532,16 +735,19 @@ def run_slice(device, mode: str = "mono", levels: int = LEVELS, chunk: int = CHU
         ">= 2 keyframes in the chunk loop": kf_in_loop >= 2,
         f"ATE < {ate_bound:.4f} m": ate < ate_bound,
     }
+    # one extraction per chunk (mono: the frames; depth: the left batch), and
+    # for stereo one more per keyframe (its right eye); each runs the patch
+    # and score kernels once per level, and mono (each frame's own ceiling)
+    # the max pass before each score launch
+    want = levels * (n_chunks + (kf_in_loop if mode == "stereo" else 0))
+    want_all = {"extract_patches": want, "fast_nms_score": want,
+                "fast_lo_max": want if mode == "mono" else 0}
+    checks[f"the kernels on every extraction ({want_all})"] = loop_launches == want_all
     if mode == "mono":
-        checks["patch kernel on every extraction"] = (
-            loop_launches["extract_patches"] >= n_chunks * levels)
-    else:
-        # one extraction per chunk (the left batch), and for stereo one more
-        # per keyframe (its right eye); each runs both kernels once per level
-        want = levels * (n_chunks + (kf_in_loop if mode == "stereo" else 0))
-        checks[f"both kernels on every extraction ({want} launches each)"] = (
-            loop_launches["fast_nms_score"] == want
-            and loop_launches["extract_patches"] == want)
+        init = st["init_launches"]
+        checks["the kernels on every host frame"] = (
+            init["extract_patches"] == init["fast_nms_score"] == init["fast_lo_max"]
+            == levels * t0_chunk)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{mode} slice checks failed: {failed}; {res}")
@@ -683,7 +889,8 @@ def run_loop_room(device, raw, gt, K, grid, config=None):
         "ends TRACKING": eng.status == TrackerStatus.TRACKING,
         "tracked >= 0.9": res["tracked_fraction"] >= 0.9,
         "finite map": bool(torch.isfinite(eng.map.kf_t).all() and torch.isfinite(eng.map.lm_pos).all()),
-        "patch kernel on every extraction": launches["extract_patches"] == LEVELS * extractions,
+        "the three kernels on every extraction": all(
+            n == LEVELS * extractions for n in launches.values()),
     }
     if JAX_LOOP_REF is not None:
         n_ref = len(JAX_LOOP_REF["closures"])
@@ -714,7 +921,8 @@ def run_kidnap(device, tracker, gt, align, rectified, frames=KIDNAP_FRAMES):
         ">= 3 of 4 relocalized": n_ok >= 0.75 * len(out),
         f"each relocalized centre within {bound:.4f} m": all(
             r["err_m"] <= bound for r in out if r["relocalized"]),
-        "patch kernel on every extraction": res["launches"]["extract_patches"] == LEVELS * len(out),
+        "the three kernels on every extraction": all(
+            n == LEVELS * len(out) for n in res["launches"].values()),
     }
     if JAX_LOOP_REF is not None:
         n_ref = sum(r["relocalized"] for r in JAX_LOOP_REF["relocalization"])
@@ -749,8 +957,8 @@ def main() -> int:
     records = {"extract_patches": check_patch_kernel(device)}
     print(f"phase 3: patch kernel checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    records["fast_nms_score"] = check_fast_kernel(device)
-    print(f"phase 3b: FAST+NMS kernel checked in {time.perf_counter() - t0:.1f} s")
+    records["fast_nms_score"], records["fast_lo_max"] = check_fast_kernel(device)
+    print(f"phase 3b: FAST+NMS kernels checked in {time.perf_counter() - t0:.1f} s")
 
     paths = [("4", "mono", dict()),
              ("5", "stereo", dict(n_chunks=STEREO_CHUNKS, ate_bound=ate_bound("stereo"))),

@@ -3,8 +3,10 @@
 Each kernel file exposes a plain C entry point. It is compiled with ``nvcc``
 for ``sm_90a`` into ``lpslam_tpu_torch/_build/`` on first use and loaded with
 ctypes; nothing is compiled when a module is imported. The library's name
-carries a hash of its source, so an edited source is always rebuilt.
-``load_libraries`` builds several sources at once, one nvcc process each.
+carries a hash of its source and the flags, so an edited source is always
+rebuilt. ``load_libraries`` builds several sources at once, one nvcc process
+each. ``entry`` resolves a C entry point once per process and ``launch``
+calls it on the tensor's device and PyTorch's current stream there.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -24,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}
+_ENTRIES: dict = {}
 BUILD_SECONDS: dict = {}
 
 
@@ -44,9 +49,10 @@ def _lib_path(src: Path) -> Path:
 
 
 def load_libraries(sources) -> dict:
-    """Compile each ``csrc/<source>`` not built yet — one nvcc process per
-    source, all started together — and return {source: loaded library}.
-    Raises if any nvcc fails."""
+    """Compile each source (a file name under csrc/, or the path of a file
+    elsewhere) not built yet — one nvcc process per source, all started
+    together — and return {source: loaded library}. Raises if any nvcc
+    fails."""
     todo = [s for s in sources if s not in _LIBS]
     t0 = time.perf_counter()
     jobs = []
@@ -75,16 +81,33 @@ def load_libraries(sources) -> dict:
     return {s: _LIBS[s] for s in sources}
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (once per process and source version) and
-    return the loaded library. Raises if nvcc fails."""
+def load_library(source) -> ctypes.CDLL:
+    """Compile one source (once per process and source version) and return
+    the loaded library. Raises if nvcc fails."""
     return load_libraries([source])[source]
 
 
-def check(status: int, what: str) -> None:
-    """Raise if a kernel entry point returned a CUDA error code."""
-    if status != 0:
-        import torch
+def entry(source, name: str, argtypes):
+    """The C entry point ``name`` of a source's library, returning int, with
+    its argument types set; built, resolved and typed on the first call."""
+    fn = _ENTRIES.get((source, name))
+    if fn is None:
+        fn = getattr(load_library(source), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[(source, name)] = fn
+    return fn
 
-        name = torch.cuda.get_device_name() if torch.cuda.is_available() else "?"
-        raise RuntimeError(f"{what}: CUDA error {status} on {name}")
+
+def launch(fn, device, *args) -> None:
+    """Call a kernel entry point with ``args`` and, last, PyTorch's current
+    stream on ``device``; raise if it returns a CUDA error code. The device
+    is made current for the call only where it is not already."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        status = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            status = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError(
+            f"{fn.__name__}: CUDA error {status} on {torch.cuda.get_device_name(device)}")

@@ -10,43 +10,71 @@
 // pltpu.roll only because Mosaic allows no unaligned slice starts; Hopper has
 // no such rule, so nothing of that scheme is carried over.
 //
-// Bound: it moves bytes and does no arithmetic. At the operating point
-// (B = 16 frames, N = 474 / 396 / 330 keypoints on the 480x640 / 400x533 /
-// 333x444 levels) it writes 16 * 1200 * 4 KB, about 78 MB per chunk, and
-// reads each window once from L2-resident level images. The design keeps the
-// stores coalesced: a 256-thread block walks KP_PER_BLOCK keypoints, and for
-// each one thread t stores the float4 at row t / 8, columns 4 * (t % 8) ..
-// +3, so one warp writes 512 contiguous bytes. Loads are four scalar reads,
-// since the window's start column has no alignment.
+// Bound: bytes; it does no arithmetic. Each image byte that some window
+// covers read once, each output byte written once, at 3.35 TB/s. The covered
+// part depends on the keypoints (chip_smoke.py counts the union of the
+// windows it times); with the whole image read it is, per level 480x640 /
+// 400x533 / 333x444 with N = 474 / 396 / 330 keypoints, at most
+//   B = 16: 50.8 / 39.7 / 31.1 MB -> 15.2 / 11.8 / 9.3 us;
+//   B = 1 (the host path): 3.17 / 2.48 / 1.95 MB -> 0.95 / 0.74 / 0.58 us,
+//   below the few microseconds any launch takes.
+// The output of a chunk (78.6 MB) is larger than the 50 MB L2 while the level
+// images (42.8 MB) nearly fit, and every window is read from an image the
+// blur has just written. What the card offers here is L2 residency, memory
+// level parallelism and the store policy; TMA does not fit: a tiled tensor
+// map needs row strides that are multiples of 16 bytes (533 columns x 4 B =
+// 2132 B is not), and a bulk 1-D copy needs a 16-byte-aligned source, while
+// a window starts at any column.
+//
+// Design. A warp, not a block, owns the work: lane l copies column l of
+// kRows rows of one window. Each row is one 128-byte request on either side
+// (an unaligned load of 32 neighbouring floats, an aligned store), so no
+// request touches a cache line twice, where the first version's four scalar
+// loads per float4 touched each line four times. All kRows loads go
+// into registers before the first store, so a warp has kRows rows in flight
+// and a block of four independent warps never waits on one keypoint's
+// latency. The keypoint's centre is one broadcast 8-byte load per warp. The
+// stores are streaming (st.global.cs): the patches are written once and read
+// by a later kernel, and they should not push the level images out of L2.
+// kRows is 8, four warps per window: one frame's 330-474 windows (the host
+// path) then still spread over the 132 SMs, and a chunk's 5,280-7,584
+// windows measured the same at 8, 16 and 32 rows per warp.
+// Measured and not kept: 32, 16 and 4 rows per warp, default-policy stores
+// (the cold image reads then miss L2 more often), and the first version's
+// layout of four scalar loads and one float4 store per thread.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kPatch = 32;
 constexpr int kHalf = 16;
-constexpr int kThreads = 256;
-constexpr int kPerBlock = 8;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 8;                 // rows of a window that one warp copies
+constexpr int kParts = kPatch / kRows;
 
 __global__ void __launch_bounds__(kThreads)
 patch_kernel(const float* __restrict__ img, const float* __restrict__ xy,
-             float* __restrict__ out, int H, int W, int N) {
-  const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const int row = t >> 3;
-  const int col = (t & 7) * 4;
-  const float* frame = img + (size_t)b * H * W;
-  for (int k = 0; k < kPerBlock; ++k) {
-    const int n = blockIdx.x * kPerBlock + k;
-    if (n >= N) return;
-    const size_t kp = (size_t)b * N + n;
-    int x0 = (int)rintf(xy[kp * 2 + 0]) - kHalf;
-    int y0 = (int)rintf(xy[kp * 2 + 1]) - kHalf;
-    x0 = min(max(x0, 0), W - kPatch);
-    y0 = min(max(y0, 0), H - kPatch);
-    const float* src = frame + (size_t)(y0 + row) * W + x0 + col;
-    float4 v = make_float4(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3));
-    reinterpret_cast<float4*>(out + kp * (kPatch * kPatch))[t] = v;
-  }
+             float* __restrict__ out, int H, int W, int N, int total) {
+  const int lane = threadIdx.x & 31;
+  const int work = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int kp = work / kParts;
+  const int part = work % kParts;
+  if (kp >= total) return;
+  const float2 c = __ldg(reinterpret_cast<const float2*>(xy) + kp);
+  int x0 = (int)rintf(c.x) - kHalf;
+  int y0 = (int)rintf(c.y) - kHalf;
+  x0 = min(max(x0, 0), W - kPatch);
+  y0 = min(max(y0, 0), H - kPatch);
+  const float* win = img + (size_t)(kp / N) * H * W + (size_t)y0 * W + x0;
+  float* dst = out + (size_t)kp * (kPatch * kPatch);
+  const float* src = win + (size_t)(part * kRows) * W + lane;
+  float v[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) v[r] = __ldg(src + (size_t)r * W);
+  dst += part * kRows * kPatch + lane;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) __stcs(dst + r * kPatch, v[r]);
 }
 
 }  // namespace
@@ -56,9 +84,11 @@ patch_kernel(const float* __restrict__ img, const float* __restrict__ xy,
 extern "C" int lpslam_extract_patches(const float* img, const float* xy, float* out,
                                       int B, int H, int W, int N, void* stream) {
   if (B > 0 && N > 0) {
-    dim3 grid((N + kPerBlock - 1) / kPerBlock, B);
-    patch_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        img, xy, out, H, W, N);
+    const int total = B * N;
+    const long long warps = (long long)total * kParts;
+    const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
+    patch_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        img, xy, out, H, W, N, total);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,11 +7,11 @@ top-k keypoints, a 7-tap Gaussian blur, one 32x32 patch per keypoint
 and the 256-bit polar-derotation BRIEF. The tables come from copies of the
 JAX package's numpy builders and are bit-equal to its tables.
 
-The FAST score has the JAX package's two forms. By default it is the
-composite (``fast_score`` x2, a blend whose low-threshold ceiling follows
-the frame's max score, ``nms3x3``). ``OrbParams(use_pallas=True)`` takes the
-fused kernel's form instead (kernels/fast_nms.py — the CUDA kernel on the
-GPU), whose ceiling is fixed; the depth trackers run it.
+The FAST score (kernels/fast_nms.py — the CUDA kernels on the GPU) has the
+JAX package's two forms. By default it is the composite's (``fast_score``
+x2, a blend whose low-threshold ceiling follows the frame's max score,
+``nms3x3``). ``OrbParams(use_pallas=True)`` takes the fused kernel's form
+instead, whose ceiling is fixed; the depth trackers run it.
 
 Only ``brief_mode="polar"`` is ported; the binned/gather/exact modes stay in
 the reference. Descriptors are (N, 8) 32-bit words stored as int32 bit
@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .fast import fast_score, nms3x3, select_topk_grid
+from .fast import select_topk_grid
 from .fast_nms import fast_nms_score
 from .patch import extract_patches
 from .pyramid import build_pyramid, gaussian_blur
@@ -46,7 +46,7 @@ class OrbParams(NamedTuple):
     fast_threshold: float = 20.0
     fast_min_threshold: float = 7.0
     cell: int = 16
-    use_pallas: bool = False  # the fused FAST+NMS kernel (fixed ceiling)
+    use_pallas: bool = False  # the fused FAST+NMS form (fixed ceiling)
 
 
 class OrbFeatures(NamedTuple):
@@ -227,17 +227,10 @@ def extract_orb(img, params: OrbParams = OrbParams()) -> OrbFeatures:
     for lvl, (level_img, k_lvl) in enumerate(zip(levels, budgets)):
         if k_lvl <= 0:
             continue
-        if params.use_pallas:
-            score = fast_nms_score(
-                level_img, params.fast_threshold, params.fast_min_threshold
-            )
-        else:
-            score_hi, _ = fast_score(level_img, params.fast_threshold)
-            score_lo, _ = fast_score(level_img, params.fast_min_threshold)
-            # high-threshold corners dominate, low-threshold ones fill in
-            lo_ceiling = 1e-3 / (1.0 + torch.amax(score_lo, dim=(-2, -1), keepdim=True))
-            score = torch.where(score_hi > 0, 1.0 + score_hi, score_lo * lo_ceiling)
-            score = nms3x3(score)
+        score = fast_nms_score(
+            level_img, params.fast_threshold, params.fast_min_threshold,
+            frame_ceiling=not params.use_pallas,
+        )
         xy, sc, valid = select_topk_grid(
             score, k_lvl, cell=params.cell, border=EDGE_MARGIN
         )

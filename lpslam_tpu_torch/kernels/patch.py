@@ -18,6 +18,8 @@ from .. import _cuda
 
 PATCH = 32
 PB = PATCH // 2
+SOURCE = "patch.cu"
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 # kernel launches made by extract_patches_cuda since the last reset
 LAUNCHES = 0
@@ -43,10 +45,7 @@ def extract_patches_reference(blurred, xy):
     return out.reshape(b, xy.shape[1], PATCH * PATCH)
 
 
-def extract_patches_cuda(blurred, xy):
-    """The CUDA kernel: (B, H, W) float32 contiguous images and (B, N, 2)
-    float32 contiguous keypoints on one CUDA device -> (B, N, 1024)."""
-    global LAUNCHES
+def _check_cuda_args(blurred, xy):
     if blurred.device.type != "cuda" or xy.device != blurred.device:
         raise ValueError("extract_patches_cuda needs both tensors on one CUDA device")
     if blurred.dtype != torch.float32 or xy.dtype != torch.float32:
@@ -58,19 +57,31 @@ def extract_patches_cuda(blurred, xy):
         raise ValueError(
             f"shapes {tuple(blurred.shape)} / {tuple(xy.shape)}: want (B,H,W) / (B,N,2)"
         )
+    if blurred.shape[1] < PATCH or blurred.shape[2] < PATCH:
+        raise ValueError(
+            f"level {blurred.shape[1]}x{blurred.shape[2]} is smaller than a "
+            f"{PATCH}x{PATCH} patch"
+        )
+
+
+def launch_patches(blurred, xy, out):
+    """Launch the kernel on checked tensors into ``out`` (B, N, 1024); the
+    one place that counts a launch."""
+    global LAUNCHES
     b, h, w = blurred.shape
-    n = xy.shape[1]
-    if h < PATCH or w < PATCH:
-        raise ValueError(f"level {h}x{w} is smaller than a {PATCH}x{PATCH} patch")
-    lib = build()
-    out = torch.empty((b, n, PATCH * PATCH), dtype=torch.float32, device=blurred.device)
-    with torch.cuda.device(blurred.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    status = lib.lpslam_extract_patches(
-        blurred.data_ptr(), xy.data_ptr(), out.data_ptr(), b, h, w, n, stream
-    )
-    _cuda.check(status, "lpslam_extract_patches")
+    fn = _cuda.entry(SOURCE, "lpslam_extract_patches", _ARGTYPES)
+    _cuda.launch(fn, blurred.device, blurred.data_ptr(), xy.data_ptr(), out.data_ptr(),
+                 b, h, w, xy.shape[1])
     LAUNCHES += 1
+
+
+def extract_patches_cuda(blurred, xy):
+    """The CUDA kernel: (B, H, W) float32 contiguous images and (B, N, 2)
+    float32 contiguous keypoints on one CUDA device -> (B, N, 1024)."""
+    _check_cuda_args(blurred, xy)
+    out = torch.empty((blurred.shape[0], xy.shape[1], PATCH * PATCH),
+                      dtype=torch.float32, device=blurred.device)
+    launch_patches(blurred, xy, out)
     return out
 
 
@@ -82,12 +93,3 @@ def extract_patches(blurred, xy):
     if blurred.device.type == "cuda":
         return extract_patches_cuda(blurred.contiguous(), xy.contiguous())
     raise ValueError(f"no patch extraction for device {blurred.device}")
-
-
-def build():
-    """Compile (first call only) and load the kernel's library."""
-    lib = _cuda.load_library("patch.cu")
-    fn = lib.lpslam_extract_patches
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib

@@ -6,19 +6,24 @@ one; run them there with
 
 - The patch kernel must be bit-equal to its plain PyTorch version on the
   border, half-to-even and tail cases, and count exactly one launch.
-- The FAST+NMS kernel must be bit-equal to its plain version at the
-  operating point's level shapes, a level under 80 rows, an odd size and a
-  level barely over the 7 rows FAST needs, and count one launch per call.
-- ``extract_orb`` on the card must launch the patch kernel (and, with
-  ``use_pallas=True``, the FAST+NMS kernel) once per pyramid level and agree
-  with the same extraction on the CPU. Matmuls sum in another order there,
-  and descriptor pairs whose two taps nearly tie are decided by that
-  rounding, so level-0 keypoints must overlap >= 0.97, angles agree within
-  1e-4 rad and < 2% of the matched keypoints' descriptor bits differ. With
-  ``use_pallas=True`` the level-0 score map is the kernel's, bit-equal to
-  the CPU's, so level-0 keypoints must be equal. Readings on an H100 80GB
+- The FAST+NMS kernel must be bit-equal to its plain version in both forms
+  (fixed ceiling; each frame's own ceiling, whose max pass must equal the
+  plain maximum) at the operating point's level shapes, a level under 80
+  rows, an odd size and a level barely over the 7 rows FAST needs, on a
+  batch with a flat frame too; the score kernel counts one launch per call
+  and the max pass one more in the frame-ceiling form. ``thr_hi < thr_lo``
+  and CPU tensors raise.
+- ``extract_orb`` on the card must launch the patch kernel and the FAST+NMS
+  kernel once per pyramid level (the max pass too unless
+  ``use_pallas=True``) and agree with the same extraction on the CPU.
+  The level-0 score map is the kernels', bit-equal to the CPU's plain
+  version, so level-0 keypoints must be equal in both forms. Matmuls sum in
+  another order there, and descriptor pairs whose two taps nearly tie are
+  decided by that rounding, so angles agree within 1e-4 rad and < 2% of the
+  matched keypoints' descriptor bits differ. Readings on an H100 80GB
   HBM3 at 700 W (torch 2.11, CUDA 12.8), ten 240x320 textures (seeds
-  11-20): the composite gave overlap 1.0, angle differences up to 2.9e-5 rad
+  11-20), with the composite still in plain PyTorch on the card: it gave
+  overlap 1.0, angle differences up to 2.9e-5 rad
   and 0.60-0.86% of the bits differing; ``use_pallas=True`` gave equal
   level-0 keypoints on all ten, angle differences up to 2.9e-5 rad and
   0.25-0.36% of the bits differing (at most 7 on one keypoint).
@@ -69,38 +74,57 @@ def test_patch_kernel_matches_plain(cuda_device):
     assert torch.equal(got, patch.extract_patches_reference(img_d, xy_d))
 
 
+@pytest.mark.parametrize("frame_ceiling", [False, True])
 @pytest.mark.parametrize("b,h,w", [(2, 480, 640), (16, 400, 533), (16, 333, 444),
                                    (3, 79, 97), (1, 37, 45), (2, 8, 8), (1, 10, 33)])
-def test_fast_nms_kernel_matches_plain(cuda_device, b, h, w):
+def test_fast_nms_kernel_matches_plain(cuda_device, b, h, w, frame_ceiling):
     rng = np.random.default_rng(h * w)
     x = (rng.random((b, h, w)) * 255).astype(np.float32)
     x[:, :, :4] = rng.choice([0.0, 255.0], (b, h, min(4, w)))  # border corners
     tex = np.stack([make_texture(max(h, 20), max(w, 20), seed=i)[:h, :w] for i in range(b)])
-    for arr in (x, np.ascontiguousarray(tex)):
+    uneven = x * (np.linspace(0.0, 1.0, b, dtype=np.float32)[:, None, None] ** 2)  # frame 0 flat
+    for arr in (x, np.ascontiguousarray(tex), uneven):
         img = torch.from_numpy(arr).to(cuda_device)
-        before = fast_nms.LAUNCHES
-        got = fast_nms.fast_nms_score(img, 20.0, 7.0)
+        before, before_max = fast_nms.LAUNCHES, fast_nms.MAX_LAUNCHES
+        got = fast_nms.fast_nms_score(img, 20.0, 7.0, frame_ceiling)
         torch.cuda.synchronize()
         assert fast_nms.LAUNCHES == before + 1
-        assert torch.equal(got, fast_nms.fast_nms_score_reference(img, 20.0, 7.0))
+        assert fast_nms.MAX_LAUNCHES == before_max + int(frame_ceiling)
+        assert torch.equal(got, fast_nms.fast_nms_score_reference(img, 20.0, 7.0, frame_ceiling))
+        assert torch.equal(fast_nms.fast_lo_max_cuda(img, 7.0),
+                           fast_nms.fast_lo_max_reference(img, 7.0))
+
+
+def test_kernel_wrappers_refuse_misuse(cuda_device):
+    img = torch.zeros((1, 40, 40))
+    with pytest.raises(ValueError):
+        fast_nms.fast_nms_score_cuda(img)
+    with pytest.raises(ValueError):
+        fast_nms.fast_lo_max_cuda(img)
+    with pytest.raises(ValueError):
+        patch.extract_patches_cuda(img, torch.zeros((1, 3, 2)))
+    with pytest.raises(ValueError):   # the kernel's early exits need thr_hi >= thr_lo
+        fast_nms.fast_nms_score_cuda(img.to(cuda_device), 7.0, 20.0)
+    with pytest.raises(TypeError):
+        fast_nms.fast_nms_score_cuda(img.to(cuda_device, torch.float64))
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_extract_orb_on_card_matches_cpu(cuda_device, use_pallas):
     img = torch.from_numpy(np.stack([make_texture(240, 320, seed=s) for s in (11, 12)]))
     params = orb.OrbParams(512, 3, use_pallas=use_pallas)
-    before, before_fast = patch.LAUNCHES, fast_nms.LAUNCHES
+    before, before_fast, before_max = patch.LAUNCHES, fast_nms.LAUNCHES, fast_nms.MAX_LAUNCHES
     got = orb.extract_orb(img.to(cuda_device), params)
     torch.cuda.synchronize()
     assert patch.LAUNCHES == before + params.num_levels
-    assert fast_nms.LAUNCHES == before_fast + (params.num_levels if use_pallas else 0)
+    assert fast_nms.LAUNCHES == before_fast + params.num_levels
+    assert fast_nms.MAX_LAUNCHES == before_max + (0 if use_pallas else params.num_levels)
     want = orb.extract_orb(img, params)
     k0 = orb._level_budgets(512, 3, 1.2)[0]
     for b in range(2):
         xy_g, xy_c = got.xy[b, :k0].cpu().numpy(), want.xy[b, :k0].numpy()
         v_g, v_c = got.valid[b, :k0].cpu().numpy(), want.valid[b, :k0].numpy()
-        if use_pallas:
-            np.testing.assert_array_equal(xy_g, xy_c)
+        np.testing.assert_array_equal(xy_g, xy_c)   # level 0: the kernels' score map
         set_c = {tuple(p) for p in xy_c[v_c]}
         set_g = {tuple(p) for p in xy_g[v_g]}
         assert len(set_c) > 50
