@@ -31,7 +31,28 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    kernel): host initialization, then 3 chunks;
 7. the 740-frame room with loop closure through VSLAMTracker (mono, chunks
    of 16), twice, held to the JAX package's CPU run (JAX_LOOP_REF);
-8. kidnapped relocalization of four first-lap frames on phase 7's map.
+8. kidnapped relocalization of four first-lap frames on phase 7's map;
+9. the CLI (`pipeline.cli.main`) in process on a JSON config at the
+   operating point: the synthetic source (64 frames, 640x480; it publishes
+   ground truth as odometry, so every TRACKING frame carries a navigation
+   prior and takes the host path), VSLAM mono with a radial mask, loop
+   closure, map emission and a map file; no frame dropped (the 64-slot
+   camera queue holds them all), >= 90% of the frames after initialization
+   tracked, Sim3 ATE within the JAX package's bound (JAX_PIPELINE_REF), the
+   map file written, one CSV row per landmark;
+10. LpSlamManager localizing in phase 9's map (mapping off, loop closure on)
+   from buffers, every second one 3-channel BGR, pushes paced to keep < 32
+   frames queued, plus a laser scan: the keyframe count stays the loaded
+   map's, >= 90% of the frames after relocalization tracked, one feature
+   per landmark, occupied cells in the occupancy grid, ATE within the JAX
+   bound;
+11. run_dataset on the stereo room at its design length (600 frames, 1.08
+   turns, so the camera comes back to its first views) with
+   RectifyProcessor on the card, loop closure and chunks of 16: >= 90%
+   tracked, >= 1 closure accepted and within 1 of the JAX package's count,
+   ATE within max(1.5 x JAX, JAX + 0.02 m) of its run (JAX_PIPELINE_REF).
+Phases 9-11 check that no worker or tracker error was recorded and that
+each of the three kernels launched; each prints its frames/s and wall time.
 Each path resets the kernels' launch counters just before its
 initialization and reads them just after its loop. Checks per path: ends
 TRACKING, >= 90% frames tracked, finite poses, >= 2 keyframes inserted in
@@ -42,15 +63,19 @@ the scale) under max(1.5 x, + 0.02 m) of the JAX package's CPU run on the
 same frames for stereo and RGB-D (JAX_CPU_ATE).
 
 The line before the last is the per-kernel JSON record: launches summed
-over the paths; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
+over the paths of phases 4-11; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
 three levels at B = 16; `enqueue_us` the mean over them; `levels` the
 per-level and B = 1 readings. The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -931,6 +956,240 @@ def run_kidnap(device, tracker, gt, align, rectified, frames=KIDNAP_FRAMES):
     return res
 
 
+# phases 9-11: the entry points users start the system with, at the
+# operating point. tools/jax_pipeline_reference.py runs the JAX package on
+# the CPU with the same configurations and prints JAX_PIPELINE_REF.
+PIPE_FRAMES = 64
+PIPE_FPS = 20.0
+PIPE_SIZE = (480, 640)
+PIPE_TRACKER = {
+    "mode": "mono", "keypoints": KEYPOINTS, "levels": LEVELS,
+    "max_keyframes": 128, "max_landmarks": 24576, "chunk_size": CHUNK,
+    "loop_closure": True, "mask_radius": 380.0, "emit_map_seconds": 1.0,
+}
+# pushes wait while the camera queue holds this many frames (phase 10)
+PIPE_QUEUE_HIGH = 32
+# the room's design length: 1.08 turns in 600 frames, so the camera comes
+# back to the first frames' view and a loop can close
+ROOM_ARGS = ["--bench", "room", "--mode", "stereo", "--frames", "600", "--loop",
+             "--chunk", "16"]
+# tools/jax_pipeline_reference.py on the CPU (the JAX package, rendering
+# every frame with its own renderers, which the port's copy)
+JAX_PIPELINE_REF = {
+    "cli": {"frames": 64, "tracked": 61, "first_valid": 3, "keyframes": 10,
+            "landmarks": 1802, "ate_m_sim3": 0.0066444975656311436},
+    "localize": {"frames": 64, "tracked": 64, "first_valid": 0, "keyframes": 10,
+                 "ate_m_sim3": 0.002649098430343324},
+    "room": {"frames": 600, "tracked": 600, "keyframes": 103, "landmarks": 14288,
+             "ate_rmse": 0.0585,
+             # accepted (k_new, candidate, n_inliers)
+             "closures": [[95, 0, 58], [98, 2, 126], [101, 5, 249]]},
+}
+
+
+def pipeline_sequence():
+    """The synthetic source's sequence for phases 9-10 (the source renders
+    the same one from its seed): images and ground-truth centres."""
+    from lpslam_tpu_torch.io.synthetic import make_sequence
+
+    seq = make_sequence(num_frames=PIPE_FRAMES, h=PIPE_SIZE[0], w=PIPE_SIZE[1], seed=0)
+    return seq.images, np.stack([np.asarray(p.t, np.float64) for p in seq.poses_wc]), seq.K
+
+
+def pipeline_config(K, map_file: str, localize: bool = False) -> dict:
+    """The JSON config of phase 9 (the synthetic source feeds it), or of
+    phase 10 (no source: frames come from buffers; mapping off, no map
+    emission)."""
+    tracker = dict(PIPE_TRACKER, map_file=map_file)
+    if localize:
+        tracker.update(mapping=False, emit_map_seconds=0.0)
+    return {
+        "manager": {"record": False},
+        "datasources": [] if localize else [{"type": "Synthetic", "configuration": {
+            "num_frames": PIPE_FRAMES, "width": PIPE_SIZE[1], "height": PIPE_SIZE[0], "seed": 0,
+            "fps": PIPE_FPS}}],
+        "cameras": [{"number": 0, "model": "no_distortion", "fx": float(K[0, 0]),
+                     "fy": float(K[1, 1]), "cx": float(K[0, 2]), "cy": float(K[1, 2]),
+                     "resolution": [PIPE_SIZE[1], PIPE_SIZE[0]], "fps": PIPE_FPS}],
+        "processors": [],
+        "trackers": [{"type": "VSLAM", "configuration": tracker}],
+    }
+
+
+def trajectory_metrics(stamped, gt, n_frames: int, ate_rmse=None) -> dict:
+    """stamped: [(timestamp, lpslam-frame position)] of valid results.
+    Frames after the first valid one, tracked, and the Sim3 ATE against
+    the ground-truth centres (the alignment absorbs the frame swap);
+    `ate_rmse` defaults to the port's."""
+    if ate_rmse is None:
+        from lpslam_tpu_torch.eval.ate import ate_rmse
+
+    idx = np.array([int(round(ts * PIPE_FPS)) for ts, _ in stamped])
+    est = np.array([p for _, p in stamped], np.float64)
+    first = int(idx.min()) if len(idx) else n_frames
+    return {"tracked": len(idx), "first_valid": first, "after": n_frames - first,
+            "ate_m_sim3": ate_rmse(est, gt[idx])[0] if len(idx) > 3 else float("inf")}
+
+
+def feed_localization(push, qsize, images):
+    """Phase 10's frames: uint8, every second one as 3-channel BGR; a push
+    waits while the camera queue holds PIPE_QUEUE_HIGH frames."""
+    for t, img in enumerate(images):
+        u8 = np.clip(np.round(img), 0, 255).astype(np.uint8)
+        buf = np.repeat(u8[..., None], 3, axis=2) if t % 2 else u8
+        while qsize() >= PIPE_QUEUE_HIGH:
+            time.sleep(0.005)
+        if not push(t / PIPE_FPS, buf):
+            raise AssertionError(f"frame {t} refused")
+
+
+def pipe_bound(key: str) -> float:
+    ref = JAX_PIPELINE_REF[key]["ate_m_sim3" if key != "room" else "ate_rmse"]
+    return max(1.5 * ref, ref + 0.02)
+
+
+def run_cli_phase(device, images, gt, K, tmp):
+    """Phase 9. Returns (result dict, map file)."""
+    from lpslam_tpu_torch.pipeline import VSLAMTracker, cli
+
+    map_file = os.path.join(tmp, "map.npz")
+    cfg_path = os.path.join(tmp, "phase9.json")
+    with open(cfg_path, "w") as f:
+        json.dump(pipeline_config(K, map_file), f)
+    traj, csv = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "map.csv")
+    timed = _Timed(device)
+    timed.wrap(VSLAMTracker, "_process_host", "host_frame")
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--config", cfg_path, "--export-trajectory", traj,
+                           "--export-map-csv", csv])
+    finally:
+        timed.undo()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    stamped = []
+    with open(traj) as f:
+        for row in f:
+            v = [float(x) for x in row.split()]
+            stamped.append((v[0], v[1:4]))
+    met = trajectory_metrics(stamped, gt, PIPE_FRAMES)
+    with open(csv) as f:
+        n_rows = len(f.read().strip().splitlines()) - 1
+    host = timed.summary().get("host_frame", {"n": 0, "median_ms": float("nan")})
+    res = {"cli": line, "rc": rc, **met, "csv_rows": n_rows, "wall_s": wall,
+           "host_frames": host["n"], "host_frame_ms_median": host["median_ms"],
+           "fps_host_path": 1e3 / host["median_ms"] if host["n"] else 0.0,
+           "launches": launches, "map_file_bytes": os.path.getsize(map_file)
+           if os.path.exists(map_file) else 0}
+    checks = {
+        "rc 0, no worker error": rc == 0 and line["error"] == "",
+        f"{PIPE_FRAMES} frames processed (none dropped)": line["frames"] == PIPE_FRAMES,
+        ">= 0.9 of the frames after init tracked": met["tracked"] >= 0.9 * met["after"],
+        "map file written": res["map_file_bytes"] > 0,
+        "one CSV row per landmark": n_rows == line["landmarks"] > 0,
+        "the three kernels launched": all(n > 0 for n in launches.values()),
+    }
+    if JAX_PIPELINE_REF is not None:
+        checks[f"ATE <= {pipe_bound('cli'):.4f} m"] = met["ate_m_sim3"] <= pipe_bound("cli")
+    res["checks_failed"] = [k for k, ok in checks.items() if not ok]
+    return res, map_file
+
+
+def run_localize_phase(device, images, gt, K, tmp, map_file):
+    """Phase 10."""
+    from lpslam_tpu_torch.interface import LpSlamManager
+
+    cfg_path = os.path.join(tmp, "phase10.json")
+    with open(cfg_path, "w") as f:
+        json.dump(pipeline_config(K, map_file, localize=True), f)
+    reset_launches()
+    t0 = time.perf_counter()
+    lm = LpSlamManager()
+    ok_cfg = lm.read_configuration_file(cfg_path)
+    if not ok_cfg:
+        return {"checks_failed": ["read_configuration_file"]}
+    tracker = lm._m.trackers[0]
+    n_kf_loaded = tracker.engine.n_keyframes
+    results = []
+    lm.set_reconstruction_callback(results.append)
+    lm.start()
+    t1 = time.perf_counter()
+    feed_localization(lm.add_image_from_buffer, lm._m.camera_queue.qsize, images)
+    lm.mapping_add_laser_scan(PIPE_FRAMES / PIPE_FPS, np.linspace(1.0, 4.0, 181),
+                              -np.pi / 2, np.pi / 180, 8.0)
+    while not lm._m.camera_queue.empty():
+        time.sleep(0.01)
+    lm.stop()
+    feed_s = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = lm.get_slam_status()
+    stamped = [(r.timestamp, r.position) for r in results if r.valid]
+    met = trajectory_metrics(stamped, gt, PIPE_FRAMES)
+    grid = lm.mapping_get_map_raw()["grid"]
+    res = {"status": {k: getattr(st, k) for k in ("localization", "keyframes", "landmarks",
+                                                  "frames_processed", "error")},
+           "keyframes_loaded": n_kf_loaded, **met, "results": len(results),
+           "features": lm.mapping_get_features_count(),
+           "occupied_cells": int((grid == 100).sum()), "fps": PIPE_FRAMES / feed_s,
+           "wall_s": wall, "launches": launches}
+    checks = {
+        "no worker error": st.error == "",
+        f"{PIPE_FRAMES} frames processed": st.frames_processed == PIPE_FRAMES,
+        "keyframes stay the loaded map's": st.keyframes == n_kf_loaded > 0,
+        "relocalized, then >= 0.9 of the frames after tracked":
+            met["tracked"] > 0 and met["tracked"] >= 0.9 * met["after"],
+        "one feature per landmark": res["features"] == st.landmarks > 0,
+        "occupied cells": res["occupied_cells"] > 0,
+        "the three kernels launched": all(n > 0 for n in launches.values()),
+    }
+    if JAX_PIPELINE_REF is not None:
+        checks[f"ATE <= {pipe_bound('localize'):.4f} m"] = (
+            met["ate_m_sim3"] <= pipe_bound("localize"))
+    res["checks_failed"] = [k for k, ok in checks.items() if not ok]
+    return res
+
+
+def run_dataset_phase(tmp):
+    """Phase 11."""
+    from lpslam_tpu_torch.eval import run_dataset
+    from lpslam_tpu_torch.loop.detector import LoopCloser
+
+    out_path = os.path.join(tmp, "room.json")
+    out = io.StringIO()
+    verdicts, undo = record_closures(LoopCloser)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = run_dataset.main(ROOM_ARGS + ["--json-out", out_path])
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    with open(out_path) as f:
+        line = json.loads(f.read())
+    closures = [[v[0], v[1], v[3]] for v in verdicts if v[4]]
+    res = {**line, "closures": closures, "rc": rc, "wall_s": wall, "launches": launches}
+    checks = {
+        "rc 0": rc == 0,
+        ">= 0.9 tracked": line["tracked"] >= 0.9 * line["frames"],
+        ">= 1 closure accepted": len(closures) >= 1,
+        "the three kernels launched": all(n > 0 for n in launches.values()),
+    }
+    if JAX_PIPELINE_REF is not None:
+        ref = JAX_PIPELINE_REF["room"]
+        checks[f"ATE <= {pipe_bound('room'):.4f} m"] = line["ate_rmse"] <= pipe_bound("room")
+        checks[f"closures within 1 of JAX's {len(ref['closures'])}"] = (
+            abs(len(closures) - len(ref["closures"])) <= 1)
+    res["checks_failed"] = [k for k, ok in checks.items() if not ok]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1010,6 +1269,53 @@ def main() -> int:
           f"{sum(r['relocalized'] for r in JAX_LOOP_REF['relocalization'])}), errors "
           f"{[round(r['err_m'], 4) for r in res['relocalization']]} m, "
           f"{time.perf_counter() - t0:.1f} s, on {card}")
+
+    t0 = time.perf_counter()
+    images, gt_pipe, K_pipe = pipeline_sequence()
+    print(f"rendered the {len(images)}-frame synthetic sequence in "
+          f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        res, map_file = run_cli_phase(device, images, gt_pipe, K_pipe, tmp)
+        for name, n in res["launches"].items():
+            records[name]["launches"] += n
+        print("cli: " + json.dumps(res))
+        failed += [f"phase 9: {c}" for c in res["checks_failed"]]
+        ref = JAX_PIPELINE_REF["cli"] if JAX_PIPELINE_REF else {}
+        print(f"phase 9: CLI {res['cli']['frames']} frames, {res['tracked']} tracked of "
+              f"{res['after']} after init (JAX CPU {ref.get('tracked')}), ATE "
+              f"{res['ate_m_sim3']:.4f} m Sim3 (JAX CPU {ref.get('ate_m_sim3')}), "
+              f"{res['cli']['keyframes']} keyframes, {res['cli']['landmarks']} landmarks; "
+              f"nav-prior host path {res['fps_host_path']:.2f} frames/s (median "
+              f"{res['host_frame_ms_median']:.2f} ms over {res['host_frames']} frames, "
+              f"synchronized), wall {res['wall_s']:.1f} s; launches {res['launches']}; "
+              f"on {card}")
+        res = run_localize_phase(device, images, gt_pipe, K_pipe, tmp, map_file)
+        for name, n in res.get("launches", {}).items():
+            records[name]["launches"] += n
+        print("localize: " + json.dumps(res))
+        failed += [f"phase 10: {c}" for c in res["checks_failed"]]
+        if "status" in res:
+            print(f"phase 10: LpSlamManager relocalized at frame {res['first_valid']}, "
+                  f"{res['tracked']} tracked of {res['after']} after, ATE "
+                  f"{res['ate_m_sim3']:.4f} m Sim3 (JAX CPU "
+                  f"{JAX_PIPELINE_REF['localize']['ate_m_sim3']}), keyframes "
+                  f"{res['status']['keyframes']} (loaded {res['keyframes_loaded']}), "
+                  f"{res['fps']:.2f} frames/s pushed and processed, wall "
+                  f"{res['wall_s']:.1f} s; launches {res['launches']}; on {card}")
+        res = run_dataset_phase(tmp)
+    for name, n in res["launches"].items():
+        records[name]["launches"] += n
+    print("run_dataset: " + json.dumps(res))
+    failed += [f"phase 11: {c}" for c in res["checks_failed"]]
+    ref = JAX_PIPELINE_REF["room"] if JAX_PIPELINE_REF else {}
+    print(f"phase 11: run_dataset stereo room {res['frames']} frames, {res['tracked']} "
+          f"tracked (JAX CPU {ref.get('tracked')}), closures {res['closures']} (JAX CPU "
+          f"{ref.get('closures')}), ATE {res['ate_rmse']} m (JAX CPU "
+          f"{ref.get('ate_rmse')}), {res['fps']} frames/s with rendering "
+          f"({res['read_ms_per_frame']} ms per frame of it), "
+          f"RectifyProcessor {res['rectify_ms_per_frame']} ms per stereo pair (host "
+          f"clock: upload, two remaps, read-back), wall {res['wall_s']:.1f} s; launches "
+          f"{res['launches']}; on {card}")
     if failed:
         raise AssertionError(f"checks failed: {failed}")
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")

@@ -1,1 +1,1 @@
-from .ate import align_umeyama, ate_rmse
+from .ate import align_umeyama, ate_rmse, rpe_rmse

@@ -1,5 +1,5 @@
-"""Trajectory evaluation: ATE with Sim3 (Umeyama) alignment, numpy only
-(a copy of lpslam_tpu/eval/ate.py, which the port cannot import)."""
+"""Trajectory evaluation: ATE with Sim3 (Umeyama) alignment and RPE, numpy
+only (a copy of lpslam_tpu/eval/ate.py, which the port cannot import)."""
 from __future__ import annotations
 
 import numpy as np
@@ -34,3 +34,13 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray, with_scale=Tru
     aligned = (s * (R @ est_positions.T)).T + t
     err = np.linalg.norm(aligned - gt_positions, axis=1)
     return float(np.sqrt(np.mean(err**2))), aligned
+
+
+def rpe_rmse(est_positions: np.ndarray, gt_positions: np.ndarray, delta: int = 1):
+    """Relative translation error RMSE over `delta`-frame steps, the steps
+    scale-aligned first (the mono gauge)."""
+    de = est_positions[delta:] - est_positions[:-delta]
+    dg = gt_positions[delta:] - gt_positions[:-delta]
+    s = (de * dg).sum() / max((de * de).sum(), 1e-12)
+    err = np.linalg.norm(s * de - dg, axis=1)
+    return float(np.sqrt(np.mean(err**2)))

@@ -44,6 +44,7 @@ from .tracker import (
     MonoTracker,
     TrackerConfig,
     TrackerStatus,
+    _apply_mask,
     insert_keyframe,
     track_frame,
     triangulate_new_landmarks,
@@ -84,8 +85,8 @@ _EMPTY_OUT = (
 )
 
 
-def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device,
-                    rectify_map=None, mode: str = "mono",
+def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
+                    mapping_enabled: bool = True, rectify_map=None, mode: str = "mono",
                     focal_x_baseline: float = 0.0, y_margin: float = 2.0,
                     max_depth: float = 12.0, min_depth: float = 0.1):
     """Build the (carry, frames) -> (carry, FrameOut) step on `device`.
@@ -96,6 +97,8 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device,
                row-matched, sub-pixel refined disparity;
       rgbd   — a ((B, H, W) gray, (B, H, W) depth) tuple; keyframes seed
                landmarks from bilinear depth.
+    mask: optional (H, W) bool keypoint mask, applied after extraction;
+    mapping_enabled=False inserts no keyframe (localization only).
     rectify_map: optional remap grid applied to the whole chunk before
     extraction — (H, W, 2), or (2, H, W, 2) for stereo, one per eye; rgbd
     remaps its depth maps with the same grid as the gray images."""
@@ -150,7 +153,7 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device,
             since >= cfg.kf_max_interval
             or n_inl < ratio * np.float32(carry.inliers_at_last_kf)
         )
-        kf = ok and want and n_kf < K and n_lm < M - N
+        kf = ok and want and mapping_enabled and n_kf < K and n_lm < M - N
         m2 = tr.map
         if kf and mode == "mono":
             m2 = insert_keyframe(
@@ -203,6 +206,8 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device,
         else:
             left, aux = _prep(frames[0], rmap), _prep(frames[1], rmap)
         feats_all = extract_orb(left, cfg.orb)
+        if mask is not None:
+            feats_all = _apply_mask(feats_all, mask)
         outs = []
         for i in range(left.shape[0]):
             carry, out = step(
@@ -260,12 +265,20 @@ class ChunkedTracker:
         else:
             mode, extra = "mono", {}
         self.mode = mode
-        self._scan = make_chunk_step(
-            engine.cam, engine.cfg, self.device, rectify_map=rectify_map,
-            mode=mode, **extra,
-        )
+        self._rectify_map, self._mode_kw = rectify_map, extra
+        self.rebuild_step()
         self._outs: list = []
         self._pending_carry = None
+
+    def rebuild_step(self) -> None:
+        """Build the step with the engine's current mask and mapping switch,
+        which the step reads when it is built: call it after changing either.
+        Chunks already dispatched keep the switch they ran with."""
+        e = self.engine
+        self._scan = make_chunk_step(
+            e.cam, e.cfg, self.device, mask=e.mask, mapping_enabled=e.mapping_enabled,
+            rectify_map=self._rectify_map, mode=self.mode, **self._mode_kw,
+        )
 
     @property
     def ready(self) -> bool:

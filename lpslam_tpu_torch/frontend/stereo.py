@@ -20,7 +20,9 @@ from ..kernels.stereo import (
 from ..mapstore.store import (
     MapStore, empty_map, insert_keyframe_slots, scatter_drop, set_row,
 )
-from .tracker import MonoTracker, TrackerConfig, _row, triangulate_new_landmarks
+from .tracker import (
+    MonoTracker, TrackerConfig, _apply_mask, _row, triangulate_new_landmarks,
+)
 
 
 def _extract_two_eyes(imgs, params: OrbParams) -> OrbFeatures:
@@ -161,17 +163,19 @@ class StereoTracker(MonoTracker):
             self.focal_x_baseline, self.y_margin, self.max_depth,
         )
 
-    def process(self, image, aux=None):
+    def process(self, image, aux=None, nav_prior=None):
         self._last_left = self._image(image)
         self._feats_lr = None
         if aux is not None:
             both = torch.stack([self._last_left, self._image(aux)])
             self._feats_lr = _extract_two_eyes(both, self.cfg.orb)
-        return super().process(image, aux=aux)
+        return super().process(image, aux=aux, nav_prior=nav_prior)
 
     def _extract(self, image) -> OrbFeatures:
         if self._feats_lr is not None:
-            return OrbFeatures(*(f[0] for f in self._feats_lr))
+            # the mask applies to the left eye, as in the mono extraction
+            feats = OrbFeatures(*(f[0] for f in self._feats_lr))
+            return feats if self.mask is None else _apply_mask(feats, self.mask)
         return super()._extract(image)
 
     def _try_initialize(self, feats: OrbFeatures, aux=None) -> bool:
@@ -213,10 +217,10 @@ class RGBDTracker(StereoTracker):
         self.min_depth = float(min_depth)
         self.max_depth = float(max_depth)
 
-    def process(self, image, aux=None):
+    def process(self, image, aux=None, nav_prior=None):
         # aux is a depth map, not a second eye: extraction as in mono
         self._feats_lr = None
-        return MonoTracker.process(self, image, aux=aux)
+        return MonoTracker.process(self, image, aux=aux, nav_prior=nav_prior)
 
     def _depths(self, feats: OrbFeatures, depth_map):
         return bilinear_depths(

@@ -10,9 +10,10 @@ The depth trackers (frontend/stereo.py) subclass ``MonoTracker`` through
 its hooks: ``_needs_two_frames``, ``_try_initialize(feats, aux)`` and
 ``_make_keyframe_map``. ``relocalize_with_candidates`` places a LOST engine
 against candidate keyframes (frontend/relocalize.py); the pipeline tracker
-(pipeline/trackers.py) supplies BoW candidates. Left out of this port for
-now: navigation priors, keypoint masks and localization-only mode
-(``mapping_enabled``).
+(pipeline/trackers.py) supplies BoW candidates. ``process(..., nav_prior=)``
+takes a navigation pose prediction in place of the constant-velocity one;
+``set_mask`` installs a keypoint mask and ``mapping_enabled = False`` stops
+keyframe insertion (localization only).
 
 Compaction results are queued with a CUDA event recorded right behind the
 compaction on the current stream (``_queue_compaction``): "ready" means that
@@ -275,6 +276,15 @@ def triangulate_new_landmarks(m: MapStore, cam: PinholeCamera,
     )
 
 
+def _apply_mask(feats: OrbFeatures, mask) -> OrbFeatures:
+    """Invalidate keypoints on masked-out pixels; mask: (H, W) bool, True
+    where keypoints may lie."""
+    h, w = mask.shape
+    xi = torch.clamp(feats.xy[..., 0].to(torch.int32), 0, w - 1).to(torch.int64)
+    yi = torch.clamp(feats.xy[..., 1].to(torch.int32), 0, h - 1).to(torch.int64)
+    return feats._replace(valid=feats.valid & mask[yi, xi])
+
+
 # ---------------------------------------------------------------------------
 # Host state machine
 # ---------------------------------------------------------------------------
@@ -309,10 +319,23 @@ class MonoTracker:
     # monocular init needs two frames with a baseline; the depth trackers
     # bootstrap from one
     _needs_two_frames = True
+    # False: localization only, track against the map, insert no keyframe
+    mapping_enabled = True
+    # optional (H, W) bool tensor on the device, True where keypoints may lie
+    mask = None
+
+    def set_mask(self, mask) -> None:
+        """Install a keypoint mask (nonzero = keep), or None to clear it."""
+        if mask is not None and not torch.is_tensor(mask):
+            mask = torch.from_numpy(np.asarray(mask))
+        self.mask = None if mask is None else mask.to(self.device, torch.bool)
 
     def _extract(self, image) -> OrbFeatures:
         img = torch.as_tensor(image, dtype=torch.float32, device=self.device)
-        return extract_orb(img, self.cfg.orb)
+        feats = extract_orb(img, self.cfg.orb)
+        if self.mask is not None:
+            feats = _apply_mask(feats, self.mask)
+        return feats
 
     def _try_initialize(self, feats: OrbFeatures, aux=None) -> bool:
         f0 = self._init_feats
@@ -410,9 +433,12 @@ class MonoTracker:
             return True
         return n_inliers < self.cfg.kf_inlier_ratio * self.inliers_at_last_kf
 
-    def process(self, image, aux=None) -> tuple:
+    def process(self, image, aux=None, nav_prior=None) -> tuple:
         """Feed one frame. Returns (status, pose Tcw as SE3 | None).
-        aux: the right eye (stereo) or the depth map (RGB-D); unused here."""
+        aux: the right eye (stereo) or the depth map (RGB-D); unused here.
+        nav_prior: an SE3 Tcw prediction from navigation data, used in place
+        of the constant-velocity prediction (TRACKING) or the last pose
+        (LOST)."""
         self._adopt_pending_map()
         feats = self._extract(image)
         self.last_feats = feats
@@ -439,7 +465,13 @@ class MonoTracker:
                 self._record(None)
         else:  # TRACKING or LOST
             lost = st == TrackerStatus.LOST
-            pred = self.pose if lost else se3_compose(self.velocity, self.pose)
+            if nav_prior is not None:
+                pred = SE3(*(torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                             for x in nav_prior))
+            elif lost:
+                pred = self.pose
+            else:
+                pred = se3_compose(self.velocity, self.pose)
             radius = self.cfg.match_radius_lost if lost else self.cfg.match_radius
             tr = track_frame(
                 self.map, pred, self.cam, feats, radius,
@@ -456,7 +488,7 @@ class MonoTracker:
                 v_meas = se3_compose(tr.pose, se3_inverse(prev_pose))
                 self.velocity = se3_exp(self.cfg.velocity_gain * se3_log(v_meas))
                 self.status = TrackerStatus.TRACKING
-                if self._keyframe_needed(n_inl):
+                if self._keyframe_needed(n_inl) and self.mapping_enabled:
                     self._adopt_pending_map()
                     self._drain_compact_stats()
                     if self._kf_count >= self.cfg.map_cfg.max_keyframes - 1:

@@ -28,6 +28,17 @@ class DatasetFrame(NamedTuple):
 class GroundTruth(NamedTuple):
     timestamps: np.ndarray            # (T,)
     positions: np.ndarray             # (T, 3) camera centres, world frame
+    quaternions_wxyz: Optional[np.ndarray] = None   # (T, 4), where known
+
+    def positions_at(self, query_ts: np.ndarray) -> np.ndarray:
+        """Ground-truth positions at the nearest timestamps."""
+        idx = np.searchsorted(self.timestamps, query_ts)
+        idx = np.clip(idx, 0, len(self.timestamps) - 1)
+        prev = np.clip(idx - 1, 0, len(self.timestamps) - 1)
+        use_prev = np.abs(self.timestamps[prev] - query_ts) < np.abs(
+            self.timestamps[idx] - query_ts
+        )
+        return self.positions[np.where(use_prev, prev, idx)]
 
 
 @dataclass

@@ -1,3 +1,11 @@
-from .config import ConfigError, ConfigOptions
-from .queues import CameraQueueEntry
-from .trackers import TrackerBase, TrackerResult, VSLAMTracker
+from .config import (
+    CameraConfig, ConfigError, ConfigOptions, FullConfig, ManagerConfig, MarkerConfig,
+    load_config_file,
+)
+from .queues import CameraQueueEntry, ResultQueueEntry, SensorQueueEntry
+from .trackers import LaserScan, TrackerBase, TrackerResult, VSLAMTracker
+from .processors import (
+    AdjustIntensityProcessor, BlackoutImageProcessor, CameraCalibrationProcessor, ProcessorBase,
+)
+from .sources import FileImageSource, ImageSourceBase, ReplaySource, SyntheticSource
+from .manager import SlamManager, SlamStatus

@@ -1,9 +1,15 @@
 """The visual-SLAM tracker stage (port of lpslam_tpu/pipeline/trackers.py):
 the engine (Mono/Stereo/RGBD trackers) behind the TrackerBase contract,
-with loop closing, BoW relocalization and the chunked frame loop.
+with loop closing, BoW relocalization, the chunked frame loop, navigation
+priors, keypoint masks, map files, localization-only mode, laser scans with
+the occupancy grid, map emission and the landmark exports.
 
-Steady TRACKING frames ride the chunk loop (frontend/device_loop.py);
-initialization and LOST frames take the per-frame host path. At each chunk
+Steady TRACKING frames without a navigation prior ride the chunk loop
+(frontend/device_loop.py); initialization, LOST frames and frames with a
+prior take the per-frame host path. A prior comes from a map-frame state
+(an absolute pose) or from the odometry delta since the last frame composed
+onto the tracked pose, in float32, with the odometry's own translation
+scale, as in the JAX package. At each chunk
 boundary the loop core adds new keyframes to the BoW database and tries to
 close a loop; a LOST host frame is relocalized against BoW candidates.
 Loop closing runs inline (``loop_async=False``) or on one background worker
@@ -14,10 +20,9 @@ that landed meanwhile.
 The vocabulary is the JAX package's shipped asset, read as data
 (``lpslam_tpu/assets/orb_vocab.npz``) unless ``vocab_file`` names another.
 
-Not ported yet, and refused with NotImplementedError when asked for:
-navigation priors and nav reseeding, laser scans and the occupancy map,
-keypoint masks, map emission, map files, the features export,
-localization-only mode, descriptor ablations and vocabulary self-training.
+Refused with NotImplementedError: descriptor ablations (``brief_mode``
+other than "polar") and vocabulary self-training. Mask images are read by
+io/png.py and resized nearest-neighbour as OpenCV's INTER_NEAREST does.
 """
 from __future__ import annotations
 
@@ -35,28 +40,18 @@ from ..frontend.stereo import RGBDTracker, StereoTracker
 from ..frontend.tracker import MonoTracker, TrackerConfig, TrackerStatus, _row
 from ..geometry.camera import PinholeCamera
 from ..geometry.frames import optical_to_lpslam
-from ..geometry.se3 import SE3
+from ..geometry.se3 import SE3, se3_compose, se3_inverse
 from ..geometry.so3 import rot_to_quat
 from ..kernels.orb import OrbParams
 from ..mapstore.store import MapConfig
 from .config import ConfigOptions
-from .queues import CameraQueueEntry
+from .queues import CameraQueueEntry, SensorQueueEntry
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SHIPPED_VOCAB = os.path.join(_REPO, "lpslam_tpu", "assets", "orb_vocab.npz")
 
-# schema options of later slices: a value other than the default raises
+# schema options the port refuses: a value other than the default raises
 _NOT_PORTED = {
-    "wait_for_navigation_data": "navigation priors (ROADMAP Queue 1 item 18)",
-    "relocalize_with_nav_data": "navigation reseeding (ROADMAP Queue 1 item 18)",
-    "time_to_relocalize": "navigation reseeding (ROADMAP Queue 1 item 18)",
-    "occupancy_cell_size": "the occupancy map (ROADMAP Queue 1 item 18)",
-    "max_laser_age": "laser scans (ROADMAP Queue 1 item 18)",
-    "mask_radius": "keypoint masks (ROADMAP Queue 1 item 18)",
-    "mask_image": "keypoint masks (ROADMAP Queue 1 item 18)",
-    "emit_map_seconds": "map emission (ROADMAP Queue 1 item 18)",
-    "map_file": "map files (ROADMAP Queue 1 items 17-18)",
-    "mapping": "localization-only mode (ROADMAP Queue 1 item 18)",
     "brief_mode": "descriptor ablations (ROADMAP rule 9: polar only)",
 }
 
@@ -78,6 +73,31 @@ class TrackerResult:
     def __post_init__(self):
         if self.position_sigma is None:
             self.position_sigma = np.zeros(3)
+
+
+@dataclass
+class LaserScan:
+    timestamp: float
+    ranges: np.ndarray          # (N,)
+    angle_min: float
+    angle_increment: float
+    range_max: float
+    # laser -> camera extrinsics; None = identity
+    extrinsic_R: np.ndarray = None
+    extrinsic_t: np.ndarray = None
+
+
+def resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Nearest-neighbour resize to (h, w) as OpenCV's INTER_NEAREST: source
+    index floor(dst * (1 / (dst_size / src_size))), clamped."""
+    sh, sw = img.shape[:2]
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))).astype(np.int64), sh - 1)
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))).astype(np.int64), sw - 1)
+    return img[ys[:, None], xs[None, :]]
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
 
 
 def _sigma_to_lpslam(sigma_xyz) -> np.ndarray:
@@ -210,6 +230,7 @@ class VSLAMTracker(TrackerBase):
         else:
             raise ValueError(f"unknown tracker mode '{mode}'")
 
+        self.engine.mapping_enabled = self.cfg["mapping"]
         self._chunk_size = int(self.cfg["chunk_size"] or 0)
         self._chunked = None              # lazily built ChunkedTracker
         self._chunk_buf: list = []        # entries awaiting dispatch
@@ -225,40 +246,116 @@ class VSLAMTracker(TrackerBase):
         self._loop_verdicts = None        # deque[(future, perm_epoch)]
         self._loop_perm_log: list = []    # compactions since the oldest in flight
         self._lost_since: Optional[float] = None
+        self._laser_buffer: list = []
         self._frame_times: list = []
+        self._mask_pending = bool(self.cfg["mask_radius"] or self.cfg["mask_image"])
+        self._sensor_queue = None
+        self._last_map_emit = 0.0
+        # the last odometry state: the next frame's prior is the delta to it
+        self._last_nav_odom = None
         # the last reference (ground-truth) pose seen on the sensor stream
         self.ref_pose = None
 
+        if self.cfg["map_file"]:
+            from ..mapstore.checkpoint import load_map
+
+            m = load_map(self.cfg["map_file"], self.engine.device)
+            if m is not None:
+                self.engine.map = m
+                self.engine.status = TrackerStatus.LOST  # relocalize into it
+
     # -- pipeline API -------------------------------------------------------
+
+    def start(self, sensor_queue=None):
+        self._sensor_queue = sensor_queue
+
+    def _configure_mask(self, shape):
+        """Build the keypoint mask on the first frame (it needs the image
+        size): a centred disc of `mask_radius` px, or a mask image whose
+        nonzero pixels keep keypoints."""
+        self._mask_pending = False
+        h, w = shape
+        if self.cfg["mask_image"]:
+            from ..io.png import imread_gray
+
+            m = imread_gray(self.cfg["mask_image"])
+            if m is None:
+                return
+            if m.shape != (h, w):
+                m = resize_nearest(m, h, w)
+            self.engine.set_mask(m > 0)
+        elif self.cfg["mask_radius"] > 0:
+            yy, xx = np.mgrid[0:h, 0:w]
+            r2 = (xx - w / 2.0) ** 2 + (yy - h / 2.0) ** 2
+            self.engine.set_mask(r2 <= self.cfg["mask_radius"] ** 2)
+
+    def _maybe_emit_map(self, now: float):
+        """Every `emit_map_seconds` (of frame time), push the landmarks onto
+        the sensor queue as a features entry."""
+        interval = self.cfg["emit_map_seconds"]
+        if not interval or self._sensor_queue is None:
+            return
+        if now - self._last_map_emit < interval:
+            return
+        self._last_map_emit = now
+        self._sensor_queue.push(
+            SensorQueueEntry(timestamp=now, kind="features", features=self.get_features(2048))
+        )
+
+    def _tcw(self, state) -> SE3:
+        """A navigation state (position, R_wc) as a float32 Tcw."""
+        pos, R_wc = state
+        Rn = np.asarray(R_wc, np.float32)
+        tn = -Rn.T @ np.asarray(pos, np.float32)
+        return SE3(torch.as_tensor(np.ascontiguousarray(Rn.T), device=self.engine.device),
+                   torch.as_tensor(tn, device=self.engine.device))
 
     def process_image(self, entry: CameraQueueEntry, nav_odom=None, nav_map=None,
                       sensor_values=()) -> list:
-        if nav_odom is not None or nav_map is not None:
-            raise _not_ported("navigation priors (ROADMAP Queue 1 item 18)")
+        if self.cfg["wait_for_navigation_data"] and nav_odom is None:
+            return []
+        if self._mask_pending:
+            self._configure_mask(np.shape(entry.image)[:2])
         for sv in sensor_values:
             if getattr(sv, "kind", None) == "global_state" and sv.reference \
                     and sv.state is not None:
                 self.ref_pose = sv.state
+
+        # the frame's navigation prior: a map-frame state is an absolute Tcw;
+        # odometry gives its delta since the last frame, composed onto the
+        # tracked pose (the offset between the two worlds cancels)
+        nav_prior = None
+        if nav_map is not None:
+            nav_prior = self._tcw(nav_map)
+        elif (nav_odom is not None and self._last_nav_odom is not None
+              and self.engine.status == TrackerStatus.TRACKING):
+            delta = se3_compose(self._tcw(nav_odom), se3_inverse(self._tcw(self._last_nav_odom)))
+            nav_prior = se3_compose(delta, self.engine.pose)
+        if nav_odom is not None:
+            self._last_nav_odom = nav_odom
+
         if self._chunk_size >= 2:
-            if self.engine.status == TrackerStatus.TRACKING:
+            if self.engine.status == TrackerStatus.TRACKING and nav_prior is None:
                 return self._chunk_process(entry)
             flushed = self._chunk_drain_all()
-            res = self._process_host(entry)
+            res = self._process_host(entry, nav_odom, nav_prior)
             return flushed + res if flushed else res
-        return self._process_host(entry)
+        return self._process_host(entry, nav_odom, nav_prior)
 
     def _time_frame(self, seconds: float) -> None:
         self._frame_times.append(seconds)
         if len(self._frame_times) > 30:
             self._frame_times.pop(0)
 
-    def _process_host(self, entry: CameraQueueEntry) -> list:
+    def _process_host(self, entry: CameraQueueEntry, nav_odom=None,
+                      nav_prior=None) -> list:
         """Per-frame host path: one engine.process per frame."""
         self._host_dirty = True
         t0 = time.monotonic()
         aux = entry.image_second if self.cfg["mode"] == "stereo" else entry.aux
-        st, pose = self.engine.process(entry.image, aux=aux)
+        st, pose = self.engine.process(entry.image, aux=aux, nav_prior=nav_prior)
         self._time_frame(time.monotonic() - t0)
+        self._maybe_emit_map(entry.timestamp)
 
         if self.cfg["loop_closure"]:
             self._ensure_loop_closer()
@@ -271,7 +368,10 @@ class VSLAMTracker(TrackerBase):
         if st == TrackerStatus.LOST:
             if self._lost_since is None:
                 self._lost_since = entry.timestamp
-            if self.loop_closer is not None:
+            if (self.cfg["relocalize_with_nav_data"] and nav_odom is not None
+                    and entry.timestamp - self._lost_since > self.cfg["time_to_relocalize"]):
+                self._reseed_from_nav(nav_odom)
+            elif self.loop_closer is not None:
                 self._bow_relocalize()
         else:
             self._lost_since = None
@@ -342,6 +442,7 @@ class VSLAMTracker(TrackerBase):
         self._time_frame((time.monotonic() - t0) / len(buf))
         self._chunk_inflight.extend((start_fid + i, e) for i, e in enumerate(buf))
         results = self._emit_chunk_results(ct.drain(keep_last=1))
+        self._maybe_emit_map(entry.timestamp)
         if self.cfg["loop_closure"]:
             self._chunk_loop_boundary(ct)
         return results
@@ -568,7 +669,94 @@ class VSLAMTracker(TrackerBase):
             m, best = self.engine.map, cands[0]
             self.engine.pose = SE3(m.kf_R[best], m.kf_t[best])
 
-    # -- status and the parts of later slices -------------------------------
+    def _reseed_from_nav(self, nav_odom):
+        """Put the LOST engine at the odometry pose; the next frame's wide
+        window tries to match from there."""
+        pos, R_wc = nav_odom
+        R = np.asarray(R_wc)
+        t = -R.T @ np.asarray(pos)
+        dev = self.engine.device
+        self.engine.pose = SE3(torch.as_tensor(R.T, dtype=torch.float32, device=dev),
+                               torch.as_tensor(t, dtype=torch.float32, device=dev))
+        self.engine.status = TrackerStatus.LOST
+        self._lost_since = None
+
+    # -- laser scans and the occupancy grid ---------------------------------
+
+    def add_laser_scan(self, scan: LaserScan):
+        self._laser_buffer.append(scan)
+        cutoff = scan.timestamp - self.cfg["max_laser_age"]
+        self._laser_buffer = [s for s in self._laser_buffer if s.timestamp >= cutoff]
+
+    def get_occupancy_map(self):
+        """Landmarks and buffered laser endpoints on a 2-D grid over the
+        optical (x, z) ground plane: dict(grid int8 (H, W) with -1 unknown /
+        0 free / 100 occupied, origin (2,), cell_size). Free space is carved
+        along every (keyframe, observed landmark) ray, sampled at up to 96
+        points; above 200,000 rays a seeded permutation keeps that many."""
+        m = self.engine.map
+        nk = int(m.n_kf)
+        if nk == 0:
+            return None
+        lmv = _np(m.lm_valid)
+        lm_world = _np(m.lm_pos)
+        pts = lm_world[lmv]
+        if len(pts) == 0:
+            return None
+        cs = self.cfg["occupancy_cell_size"]
+        kf_R = _np(m.kf_R[:nk])
+        kf_t = _np(m.kf_t[:nk])
+        centers = -np.einsum("kij,kj->ki", kf_R.transpose(0, 2, 1), kf_t)
+        all_xy = np.concatenate([pts[:, [0, 2]], centers[:, [0, 2]]], 0)
+        lo = all_xy.min(0) - 3 * cs
+        hi = all_xy.max(0) + 3 * cs
+        shape = np.maximum(((hi - lo) / cs).astype(int) + 1, 1)
+        grid = np.full((shape[1], shape[0]), -1, np.int8)
+
+        def to_cell(xy):
+            c = ((xy - lo) / cs).astype(int)
+            return np.clip(c, 0, shape - 1)
+
+        kf_lm = _np(m.kf_lm_idx[:nk])
+        kk, nn = np.nonzero(kf_lm >= 0)
+        lm_idx = kf_lm[kk, nn]
+        keep = lmv[lm_idx]
+        kk, lm_idx = kk[keep], lm_idx[keep]
+        uniq = np.unique(np.stack([kk, lm_idx], 1), axis=0)
+        max_rays = 200_000
+        if len(uniq) > max_rays:
+            uniq = uniq[np.random.default_rng(0).permutation(len(uniq))[:max_rays]]
+        if len(uniq):
+            src = centers[uniq[:, 0]][:, [0, 2]]
+            dst = lm_world[uniq[:, 1]][:, [0, 2]]
+            max_len_cells = np.max(np.abs(dst - src)) / cs + 1
+            n_s = int(np.clip(max_len_cells, 2, 96))
+            ts = np.linspace(0.0, 1.0 - 1.0 / n_s, n_s)[None, :, None]
+            rays = src[:, None, :] + (dst - src)[:, None, :] * ts
+            cells = to_cell(rays.reshape(-1, 2))
+            grid[cells[:, 1], cells[:, 0]] = 0
+        cam_cells = to_cell(centers[:, [0, 2]])
+        grid[cam_cells[:, 1], cam_cells[:, 0]] = 0
+        lm_cells = to_cell(pts[:, [0, 2]])
+        grid[lm_cells[:, 1], lm_cells[:, 0]] = 100
+        for scan in self._laser_buffer:
+            angles = scan.angle_min + np.arange(len(scan.ranges)) * scan.angle_increment
+            ok = (scan.ranges > 0) & (scan.ranges < scan.range_max)
+            ex = scan.ranges[ok] * np.cos(angles[ok])
+            ez = scan.ranges[ok] * np.sin(angles[ok])
+            pts_cam = np.stack([ex, np.zeros_like(ex), ez], 1)
+            if scan.extrinsic_R is not None:
+                pts_cam = pts_cam @ np.asarray(scan.extrinsic_R).T
+                if scan.extrinsic_t is not None:
+                    pts_cam = pts_cam + np.asarray(scan.extrinsic_t)
+            R = kf_R[nk - 1]
+            ctr = -R.T @ kf_t[nk - 1]
+            pts_l = pts_cam @ R + ctr
+            for c in to_cell(pts_l[:, [0, 2]]):
+                grid[c[1], c[0]] = 100
+        return {"grid": grid, "origin": lo, "cell_size": cs}
+
+    # -- status and exports -------------------------------------------------
 
     def status(self) -> dict:
         ft = float(np.mean(self._frame_times)) if self._frame_times else 0.0
@@ -579,29 +767,63 @@ class VSLAMTracker(TrackerBase):
             "frame_time": ft,
         }
 
-    def add_laser_scan(self, scan):
-        raise _not_ported("laser scans (ROADMAP Queue 1 item 18)")
-
-    def get_occupancy_map(self):
-        raise _not_ported("the occupancy map (ROADMAP Queue 1 item 18)")
-
     def get_features(self, max_count: int = 0, boundary=None, transform=None):
-        raise _not_ported("the features export (ROADMAP Queue 1 item 18)")
+        """The landmarks in the lpslam frame as [{"position", "observations"}].
+
+        boundary: optional ((y_min, z_min), (y_max, z_max)) rectangle in the
+        lpslam map plane; only landmarks whose (y, z) lie inside are kept.
+        transform: optional 3x3 (or flat 9) matrix applied to each position.
+        """
+        m = self.engine.map
+        lmv = _np(m.lm_valid)
+        pts = _np(m.lm_pos)[lmv]
+        obs = _np(m.lm_n_obs)[lmv]
+        pts = optical_to_lpslam(pts) if len(pts) else pts
+        if boundary is not None:
+            (y0, z0), (y1, z1) = boundary
+            ylo, yhi = min(y0, y1), max(y0, y1)
+            zlo, zhi = min(z0, z1), max(z0, z1)
+            keep = ((pts[:, 1] >= ylo) & (pts[:, 1] <= yhi)
+                    & (pts[:, 2] >= zlo) & (pts[:, 2] <= zhi))
+            pts, obs = pts[keep], obs[keep]
+        if transform is not None:
+            T = np.asarray(transform, np.float32).reshape(3, 3)
+            pts = pts @ T.T
+        if max_count and len(pts) > max_count:
+            pts, obs = pts[:max_count], obs[:max_count]
+        return [{"position": p, "observations": int(o)} for p, o in zip(pts, obs)]
 
     def get_features_count(self, boundary=None) -> int:
-        raise _not_ported("the features export (ROADMAP Queue 1 item 18)")
+        return len(self.get_features(0, boundary=boundary))
 
     def export_csv(self, path: str):
-        raise _not_ported("the features export (ROADMAP Queue 1 item 18)")
+        """The landmarks as CSV, in the engine's world (optical) frame."""
+        m = self.engine.map
+        lmv = _np(m.lm_valid)
+        pts = _np(m.lm_pos)[lmv]
+        obs = _np(m.lm_n_obs)[lmv]
+        with open(path, "w") as f:
+            f.write("x,y,z,n_obs\n")
+            for p, o in zip(pts, obs):
+                f.write(f"{p[0]},{p[1]},{p[2]},{int(o)}\n")
 
     def set_mapping_mode(self, enabled: bool):
-        raise _not_ported("localization-only mode (ROADMAP Queue 1 item 18)")
+        """Freeze (False) or resume (True) keyframe insertion, on the host
+        path and in the chunk loop (the JAX package's chunk loop keeps the
+        switch it was built with)."""
+        self.engine.mapping_enabled = bool(enabled)
+        if self._chunked is not None:
+            self._chunked.rebuild_step()
 
     def save_map(self, path: str):
-        raise _not_ported("map files (ROADMAP Queue 1 item 17)")
+        from ..mapstore.checkpoint import save_map
+
+        save_map(self.engine.map, path)
 
     def stop(self):
         self._loop_drain()
         if self._loop_exec is not None:
             self._loop_exec.shutdown(wait=True)
             self._loop_exec = None
+        if self.cfg["map_file"]:
+            self.save_map(self.cfg["map_file"])

@@ -27,6 +27,11 @@ one; run them there with
   and 0.60-0.86% of the bits differing; ``use_pallas=True`` gave equal
   level-0 keypoints on all ten, angle differences up to 2.9e-5 rad and
   0.25-0.36% of the bits differing (at most 7 on one keypoint).
+- The pipeline on the card: RectifyProcessor's undistorted and rectified
+  frames equal its CPU run within 1e-4 gray levels (the grids are the same
+  numpy arrays; the bilinear blend may contract differently); SlamManager
+  with the synthetic source processes every frame with no worker error and
+  launches the kernels.
 - Loop closing on the card against the same calls on the CPU: the shipped
   vocabulary's word ids and tf counts bit-equal (an fp32 ±1 product, exact
   with TF32 off); the normalized BoW vector within 1e-6 relative (its norm
@@ -207,3 +212,53 @@ def test_correct_loop_on_card_matches_cpu(cuda_device):
                  (out_gpu.lm_pos, out_cpu.lm_pos)):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3)
+
+
+def test_rectify_processor_on_card_matches_cpu(cuda_device):
+    from lpslam_tpu_torch.io import SyntheticBenchmark
+    from lpslam_tpu_torch.pipeline.config import CameraConfig
+    from lpslam_tpu_torch.pipeline.queues import CameraQueueEntry
+    from lpslam_tpu_torch.pipeline.rectify import RectifyProcessor
+
+    ds = SyntheticBenchmark(num_frames=2, h=240, w=320, seed=0, stereo=True)
+    intr = ds.intr
+    fr = next(iter(ds))
+    kw = dict(model="perspective", fx=intr["fx"], fy=intr["fy"], cx=intr["cx"], cy=intr["cy"],
+              distortion=np.asarray(intr["dist"], np.float32), width=320, height=240)
+    left = CameraConfig(number=0, rotation=np.eye(3),
+                        translation=np.array([-intr["baseline"], 0.0, 0.0]), **kw)
+    right = CameraConfig(number=1, **kw)
+    for cams, second in (((CameraConfig(number=0, **kw),), None), ((left, right), fr.image_right)):
+        out = []
+        for dev in ("cpu", cuda_device):
+            proc = RectifyProcessor(None, *cams, device=dev)
+            e = proc.process_image(CameraQueueEntry(0.0, fr.image.copy(), second))
+            out.append((e.image, e.image_second))
+        for a, b in zip(*out):
+            if a is not None:
+                np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+
+
+def test_manager_on_card_processes_frames(cuda_device):
+    import time
+
+    from lpslam_tpu_torch.pipeline.config import CameraConfig
+    from lpslam_tpu_torch.pipeline.manager import SlamManager
+
+    mgr = SlamManager(device=cuda_device)
+    src = mgr.add_source_by_name("Synthetic", {"num_frames": 12, "width": 320, "height": 240})
+    K = src.K
+    mgr.set_camera_configuration(CameraConfig(number=0, fx=float(K[0, 0]), fy=float(K[1, 1]),
+                                              cx=float(K[0, 2]), cy=float(K[1, 2])))
+    tracker = mgr.add_tracker_by_name("VSLAM", {"keypoints": 512, "max_keyframes": 16,
+                                                "max_landmarks": 4096})
+    before = patch.LAUNCHES
+    mgr.start()
+    t0 = time.time()
+    while not (src.done and mgr.camera_queue.empty()) and time.time() - t0 < 300:
+        time.sleep(0.05)
+    mgr.stop()
+    st = mgr.get_status()
+    assert st.error == "" and st.frames_processed == 12, st
+    assert tracker.engine.map.lm_pos.is_cuda
+    assert patch.LAUNCHES >= before + 12

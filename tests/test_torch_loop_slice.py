@@ -12,8 +12,11 @@ within +-1; keyframes within +-1; tracked frames within 1; Sim3 ATE
 
 Also the asynchronous loop worker (a verdict in flight is remapped through
 a compaction that lands meanwhile, or dropped when a party was culled;
-flush() lands every verdict), the options of later slices refusing to run,
-and the TrackerResult pose conversion.
+flush() lands every verdict), the one option that stays refused
+(`brief_mode`), the ten options the pipeline slice ported (each held to the
+JAX package's option on the same input: exact masks, occupancy grids, laser
+buffers, emitted features, loaded maps; reseeded poses within 1e-6), and the
+TrackerResult pose conversion.
 """
 import threading
 
@@ -192,7 +195,144 @@ def test_options_of_later_slices_refuse(name):
         VSLAMTracker(cam, {name: value}, device="cpu")
 
 
+# the ten options the pipeline slice ported, each checked against the JAX
+# package's option on the same input
+PORTED_OPTIONS = ("emit_map_seconds", "map_file", "mapping", "mask_image", "mask_radius",
+                  "max_laser_age", "occupancy_cell_size", "relocalize_with_nav_data",
+                  "time_to_relocalize", "wait_for_navigation_data")
+
+
+def _lost_stub(pkg):
+    """An engine stuck LOST that records nothing (for the nav reseeding)."""
+    from test_torch_pipeline_tracker import _Stub
+
+    if pkg == "jax":
+        import jax.numpy as jnp
+        from lpslam_tpu.frontend.tracker import TrackerStatus
+        from lpslam_tpu.geometry.se3 import SE3
+
+        return _Stub(TrackerStatus.LOST, SE3(jnp.eye(3), jnp.zeros(3)))
+    from lpslam_tpu_torch.frontend.tracker import TrackerStatus
+    from lpslam_tpu_torch.geometry.se3 import se3_identity
+
+    stub = _Stub(TrackerStatus.LOST, se3_identity("cpu"))
+    stub.device = torch.device("cpu")
+    return stub
+
+
+def _reseed_run(tr, pkg, times):
+    """Frames at `times` (s) with an odometry state, on a LOST stub engine;
+    returns the engine pose after each frame (numpy) and whether it moved."""
+    from lpslam_tpu.pipeline.queues import CameraQueueEntry as JEntry
+
+    tr.engine = _lost_stub(pkg)
+    Entry = JEntry if pkg == "jax" else CameraQueueEntry
+    nav = (np.array([0.4, -0.2, 1.5]), np.array([[0.0, 0, 1], [0, 1, 0], [-1, 0, 0]]))
+    out = []
+    for ts in times:
+        tr.process_image(Entry(timestamp=ts, image=np.zeros((12, 16), np.float32)),
+                         nav_odom=nav)
+        out.append((np.asarray(tr.engine.pose.R).copy(), np.asarray(tr.engine.pose.t).copy()))
+    return out
+
+
+@pytest.mark.parametrize("name", PORTED_OPTIONS)
+def test_ported_option_matches_jax(name, tmp_path):
+    import test_torch_pipeline_tracker as tpt
+    from lpslam_tpu.pipeline.trackers import LaserScan as JScan
+    from lpslam_tpu_torch.convert import map_from_numpy, map_to_numpy
+    from lpslam_tpu_torch.io.png import write_png
+    from lpslam_tpu_torch.pipeline.trackers import LaserScan
+
+    seq = make_sequence(num_frames=1, h=120, w=160, seed=1, fx=115.0)
+    cfg = dict(tpt.BASE)
+    d = tpt.small_map_numpy(seed=7)
+    if name == "map_file":
+        path = str(tmp_path / "m.npz")
+        jt, _ = tpt.make_trackers(seq, cfg)
+        jt.engine.map = tpt.jax_map(d)
+        jt.cfg["map_file"] = path
+        jt.stop()                                  # the JAX package writes it
+        cfg[name] = path
+    elif name == "mask_image":
+        m = np.zeros((30, 40), np.uint8)
+        m[3:25, 5:33] = 7
+        cfg[name] = str(tmp_path / "mask.png")
+        write_png(cfg[name], m)
+    else:
+        cfg[name] = {"emit_map_seconds": 0.5, "mapping": False, "mask_radius": 50.0,
+                     "max_laser_age": 0.25, "occupancy_cell_size": 0.3,
+                     "relocalize_with_nav_data": True, "time_to_relocalize": 0.5,
+                     "wait_for_navigation_data": True}[name]
+    if name == "time_to_relocalize":
+        cfg["relocalize_with_nav_data"] = True
+    jt, pt = tpt.make_trackers(seq, cfg)          # accepted by both
+    assert pt.cfg[name] == jt.cfg[name]
+
+    if name == "map_file":
+        assert pt.engine.status.name == jt.engine.status.name == "LOST"
+        a = map_to_numpy(pt.engine.map)
+        for k, v in d.items():
+            np.testing.assert_array_equal(a[k], v, err_msg=k)
+    elif name == "mapping":
+        assert pt.engine.mapping_enabled is jt.engine.mapping_enabled is False
+    elif name in ("mask_image", "mask_radius"):
+        jt._configure_mask((120, 160))
+        pt._configure_mask((120, 160))
+        want = np.asarray(jt.engine.mask)
+        assert 0 < want.sum() < want.size
+        np.testing.assert_array_equal(pt.engine.mask.numpy(), want)
+    elif name in ("max_laser_age", "occupancy_cell_size"):
+        jt.engine.map = tpt.jax_map(d)
+        pt.engine.map = map_from_numpy(d, "cpu")
+        rng = np.random.default_rng(1)
+        for ts in (0.0, 0.2, 0.5):
+            kw = dict(timestamp=ts, ranges=rng.uniform(0.5, 4.0, 40), angle_min=-0.8,
+                      angle_increment=0.04, range_max=3.5)
+            jt.add_laser_scan(JScan(**kw))
+            pt.add_laser_scan(LaserScan(**kw))
+        assert [s.timestamp for s in pt._laser_buffer] == [s.timestamp for s in jt._laser_buffer]
+        np.testing.assert_array_equal(pt.get_occupancy_map()["grid"],
+                                      jt.get_occupancy_map()["grid"])
+    elif name == "emit_map_seconds":
+        jt.engine.map = tpt.jax_map(d)
+        pt.engine.map = map_from_numpy(d, "cpu")
+        got = []
+        for tr in (jt, pt):
+            q = []
+            tr.start(type("Q", (), {"push": staticmethod(q.append)})())
+            for now in (0.1, 0.5, 0.7, 1.05):
+                tr._maybe_emit_map(now)
+            got.append([(e.timestamp, len(e.features)) for e in q])
+        assert got[0] == got[1] and len(got[0]) == 2
+    elif name == "wait_for_navigation_data":
+        from lpslam_tpu.pipeline.queues import CameraQueueEntry as JEntry
+
+        img = seq.images[0]
+        assert jt.process_image(JEntry(timestamp=0.0, image=img)) == []
+        assert pt.process_image(CameraQueueEntry(0.0, img)) == []
+        assert pt.engine.frame_id == jt.engine.frame_id == 0
+    else:  # relocalize_with_nav_data, time_to_relocalize
+        times = (0.0, 0.3, 0.7, 4.5)
+        a, b = _reseed_run(pt, "torch", times), _reseed_run(jt, "jax", times)
+        for (Ra, ta), (Rb, tb) in zip(a, b):
+            np.testing.assert_allclose(Ra, Rb, atol=1e-6)
+            np.testing.assert_allclose(ta, tb, atol=1e-6)
+        moved = [not np.allclose(R, np.eye(3)) for R, _ in a]
+        # the first frame past the wait reseeds the pose from the odometry
+        want = [False, False, True, True] if name == "time_to_relocalize" \
+            else [False, False, False, True]
+        assert moved == want, moved
+
+
 def test_schema_and_unported_calls():
+    from lpslam_tpu_torch.pipeline.processors import CameraCalibrationProcessor
+    from lpslam_tpu_torch.pipeline.rectify import RectifyProcessor
+    from lpslam_tpu_torch.pipeline.config import CameraConfig
+    from lpslam_tpu_torch.pipeline.sources import (
+        OpenCVCameraSource, ReplaySource, ZedOpenCaptureSource, ZedSdkSource,
+    )
+
     cam = TCam.make(100.0, 100.0, 80.0, 60.0, device="cpu")
     with pytest.raises(ConfigError):
         VSLAMTracker(cam, {"no_such_option": 1}, device="cpu")
@@ -202,15 +342,22 @@ def test_schema_and_unported_calls():
         VSLAMTracker(cam, {"mode": "sonar"}, device="cpu")
     tr = VSLAMTracker(cam, {"_comment": "ignored", "keypoints": 64.0}, device="cpu")
     assert tr.cfg["keypoints"] == 64
-    entry = CameraQueueEntry(0.0, np.zeros((120, 160), np.float32))
-    with pytest.raises(NotImplementedError):
-        tr.process_image(entry, nav_odom=(np.zeros(3), np.eye(3)))
-    for call in (lambda: tr.get_features(), lambda: tr.save_map("m"),
-                 lambda: tr.set_mapping_mode(False), lambda: tr.get_occupancy_map(),
-                 lambda: tr.add_laser_scan(None), lambda: tr.export_csv("x")):
-        with pytest.raises(NotImplementedError):
-            call()
     assert tr.status()["state"] == "NOT_INITIALIZED"
+    # what stays refused: record/replay, the live sources, calibration,
+    # fisheye and omni rectification
+    for src, conf in ((ReplaySource, {"file": "x.pb"}), (OpenCVCameraSource, {}),
+                      (ZedOpenCaptureSource, {}), (ZedSdkSource, {})):
+        with pytest.raises(NotImplementedError, match="item 2[01]"):
+            src(conf)
+    with pytest.raises(ConfigError):
+        ReplaySource({})                           # the schema still parses first
+    with pytest.raises(NotImplementedError, match="item 22"):
+        CameraCalibrationProcessor({})
+    for model, dist in (("fisheye", [0.1, 0.0, 0.0, 0.0]), ("omni", [])):
+        cc = CameraConfig(number=0, model=model, fx=100.0, fy=100.0, cx=80.0, cy=60.0,
+                          distortion=np.asarray(dist, np.float32), width=160, height=120)
+        with pytest.raises(NotImplementedError, match="item 23"):
+            RectifyProcessor(camera=cc, device="cpu")
 
 
 def test_vocabulary_training_refuses():
