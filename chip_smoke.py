@@ -50,8 +50,19 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    turns, so the camera comes back to its first views) with
    RectifyProcessor on the card, loop closure and chunks of 16: >= 90%
    tracked, >= 1 closure accepted and within 1 of the JAX package's count,
-   ATE within max(1.5 x JAX, JAX + 0.02 m) of its run (JAX_PIPELINE_REF).
-Phases 9-11 check that no worker or tracker error was recorded and that
+   ATE within max(1.5 x JAX, JAX + 0.02 m) of its run (JAX_PIPELINE_REF);
+12. record and replay, no new rendering: (a) the CLI on phase 9's config
+   with --record (every frame JPEG-encoded by the numpy codec on the slam
+   worker): 64 frames, none dropped, >= 90% tracked after init, one .pb with
+   64 camera images, global states and one result per valid result; (b) the
+   same config without its source and --replay of that stream: 64 frames,
+   >= 90% tracked after init, Sim3 ATE within max(1.5 x, + 0.02 m) of the
+   JAX package replaying its own recording (JAX_PIPELINE_REF "replay"), the
+   kernels launched on the replay path; (c) the codec's bytes and pixels on
+   this host against sha256 digests pinned from OpenCV (CODEC_DIGESTS).
+   It prints the median encode and decode ms per 640x480 frame and the
+   replay's frames/s.
+Phases 9-12 check that no worker or tracker error was recorded and that
 each of the three kernels launched; each prints its frames/s and wall time.
 Each path resets the kernels' launch counters just before its
 initialization and reads them just after its loop. Checks per path: ends
@@ -63,7 +74,7 @@ the scale) under max(1.5 x, + 0.02 m) of the JAX package's CPU run on the
 same frames for stereo and RGB-D (JAX_CPU_ATE).
 
 The line before the last is the per-kernel JSON record: launches summed
-over the paths of phases 4-11; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
+over the paths of phases 4-12; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
 three levels at B = 16; `enqueue_us` the mean over them; `levels` the
 per-level and B = 1 readings. The last line is {"ok": true, "device": {...}}.
 """
@@ -804,13 +815,14 @@ def loop_ate_bound() -> float:
 
 
 class _Timed:
-    """Synchronized host-clock ms of each call of the wrapped functions,
-    by key; undo() restores them."""
+    """Host-clock ms of each call of the wrapped functions, by key,
+    synchronized with the device unless it is None; undo() restores them."""
 
     def __init__(self, device):
         self.ms = {}
         self._undo = []
-        self._sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        cuda = device is not None and device.type == "cuda"
+        self._sync = torch.cuda.synchronize if cuda else (lambda: None)
 
     def wrap(self, owner, name, key, after=None):
         orig = getattr(owner, name)
@@ -984,6 +996,12 @@ JAX_PIPELINE_REF = {
              "ate_rmse": 0.0585,
              # accepted (k_new, candidate, n_inliers)
              "closures": [[95, 0, 58], [98, 2, 126], [101, 5, 249]]},
+    # phase 12: phase 9's session recorded (OpenCV JPEG, quality 90), then
+    # replayed on its config without the source
+    "replay": {"frames": 64, "tracked": 61, "first_valid": 3, "keyframes": 10,
+               "landmarks": 1774, "ate_m_sim3": 0.004526346672183415,
+               "file_bytes": 2879409,
+               "messages": {"camera_image": 64, "global_state": 64, "imu": 0, "result": 61}},
 }
 
 
@@ -1048,9 +1066,35 @@ def pipe_bound(key: str) -> float:
     return max(1.5 * ref, ref + 0.02)
 
 
+def run_cli_in(cwd: str, argv: list):
+    """cli.main(argv) with `cwd` as the working directory (a recording goes
+    there) and its stdout kept: (rc, its JSON line, wall s)."""
+    from lpslam_tpu_torch.pipeline import cli
+
+    out = io.StringIO()
+    here = os.getcwd()
+    os.chdir(cwd)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        os.chdir(here)
+    return rc, json.loads(out.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def read_trajectory(path: str) -> list:
+    stamped = []
+    with open(path) as f:
+        for row in f:
+            v = [float(x) for x in row.split()]
+            stamped.append((v[0], v[1:4]))
+    return stamped
+
+
 def run_cli_phase(device, images, gt, K, tmp):
     """Phase 9. Returns (result dict, map file)."""
-    from lpslam_tpu_torch.pipeline import VSLAMTracker, cli
+    from lpslam_tpu_torch.pipeline import VSLAMTracker
 
     map_file = os.path.join(tmp, "map.npz")
     cfg_path = os.path.join(tmp, "phase9.json")
@@ -1059,24 +1103,14 @@ def run_cli_phase(device, images, gt, K, tmp):
     traj, csv = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "map.csv")
     timed = _Timed(device)
     timed.wrap(VSLAMTracker, "_process_host", "host_frame")
-    out = io.StringIO()
     reset_launches()
-    t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(["--config", cfg_path, "--export-trajectory", traj,
-                           "--export-map-csv", csv])
+        rc, line, wall = run_cli_in(tmp, ["--config", cfg_path, "--export-trajectory", traj,
+                                          "--export-map-csv", csv])
     finally:
         timed.undo()
-    wall = time.perf_counter() - t0
     launches = read_launches()
-    line = json.loads(out.getvalue().strip().splitlines()[-1])
-    stamped = []
-    with open(traj) as f:
-        for row in f:
-            v = [float(x) for x in row.split()]
-            stamped.append((v[0], v[1:4]))
-    met = trajectory_metrics(stamped, gt, PIPE_FRAMES)
+    met = trajectory_metrics(read_trajectory(traj), gt, PIPE_FRAMES)
     with open(csv) as f:
         n_rows = len(f.read().strip().splitlines()) - 1
     host = timed.summary().get("host_frame", {"n": 0, "median_ms": float("nan")})
@@ -1186,6 +1220,170 @@ def run_dataset_phase(tmp):
         checks[f"ATE <= {pipe_bound('room'):.4f} m"] = line["ate_rmse"] <= pipe_bound("room")
         checks[f"closures within 1 of JAX's {len(ref['closures'])}"] = (
             abs(len(closures) - len(ref["closures"])) <= 1)
+    res["checks_failed"] = [k for k, ok in checks.items() if not ok]
+    return res
+
+
+# phase 12: record phase 9's session through the CLI, then replay it
+# sha256 (first 16 hex digits) of cv2.imencode(codec_image(h, w, i), q) with
+# OpenCV 5.0.0 / libjpeg-turbo 3.1.2, and of cv2.imdecode(IMREAD_GRAYSCALE)
+# of those bytes: the numpy codec must give the same bytes on the card's host
+CODEC_SIZES = [(1, 1), (45, 67), (48, 64), (120, 160)]
+CODEC_QUALITIES = [1, 50, 70, 90, 95, 100]
+CODEC_DIGESTS = {
+    (1, 1, 1): ("da61a5da600c4e2c", "36a9e7f1c95b82ff"),
+    (1, 1, 50): ("a4d70b102709a550", "7cb7c4547cf26535"),
+    (1, 1, 70): ("2a64a60de8455907", "8f11b05da785e43e"),
+    (1, 1, 90): ("1b93d0ef05b6439e", "8f11b05da785e43e"),
+    (1, 1, 95): ("d383516c80e58c1b", "8f11b05da785e43e"),
+    (1, 1, 100): ("fe3ecebf923fdc52", "8f11b05da785e43e"),
+    (45, 67, 1): ("3621e40a663b7822", "be6a2f70c85569ca"),
+    (45, 67, 50): ("99d26888f6ff5a4a", "e87f6eea967aa4c3"),
+    (45, 67, 70): ("dd4eeb1c3e39b0ab", "4a0131ed5b3253f2"),
+    (45, 67, 90): ("aa4733e875f33aef", "8e95282ad314918a"),
+    (45, 67, 95): ("6c571a73d4c0a0c9", "987a1d00aa0fc246"),
+    (45, 67, 100): ("4d14b2a90d6833df", "a80ad403f695bf7b"),
+    (48, 64, 1): ("7ed3da4f2c4b1471", "26e25571b7e2f91d"),
+    (48, 64, 50): ("8b32919ee4fed0bc", "c6c26f3d25858c96"),
+    (48, 64, 70): ("3089ea81cc3123d8", "15356e576eb11462"),
+    (48, 64, 90): ("747c393c8106ea29", "ceadc81c398ecfb3"),
+    (48, 64, 95): ("ba737d11b915e696", "6e109ede5b3c1b8e"),
+    (48, 64, 100): ("4905ccf862a7144c", "e6b4f9f7ec951083"),
+    (120, 160, 1): ("632d6f9400cf0939", "04baa41770da3809"),
+    (120, 160, 50): ("c60662a09b941036", "e386114b898fcb74"),
+    (120, 160, 70): ("7c9deeb782f6cee5", "d6aa37c231ace971"),
+    (120, 160, 90): ("4f2d63befa0789dd", "cfa3f802612fd90c"),
+    (120, 160, 95): ("0c01858dbc34b056", "487dd203661d5229"),
+    (120, 160, 100): ("40c3e37b150be7e1", "c4a431ecfd7d7e03"),
+}
+
+
+def codec_image(h: int, w: int, seed: int) -> np.ndarray:
+    """A gradient plus seeded noise, uint8."""
+    yy, xx = np.mgrid[:h, :w]
+    noise = np.random.default_rng(seed).integers(0, 64, (h, w), dtype=np.uint8)
+    return (((xx * 7 + yy * 3) % 256).astype(np.uint8) // 2 + noise).astype(np.uint8)
+
+
+def pb_counts(path: str) -> dict:
+    """Messages of a .pb stream by type, and the CameraImage messages."""
+    from lpslam_tpu_torch.io import lpslam_pb as pb
+
+    names = {pb.MSG_CAMERA_IMAGE: "camera_image", pb.MSG_SENSOR_IMU: "imu",
+             pb.MSG_SENSOR_GLOBAL_STATE: "global_state", pb.MSG_RESULT: "result",
+             pb.MSG_SENSOR_FEATURE: "feature"}
+    counts, cams = {}, []
+    with pb.ProtoStreamReader(path) as r:
+        for t, msg in r:
+            counts[names.get(t, str(t))] = counts.get(names.get(t, str(t)), 0) + 1
+            if t == pb.MSG_CAMERA_IMAGE:
+                cams.append(msg)
+    return {"counts": counts, "cameras": cams}
+
+
+def run_record_replay_phase(device, gt, K, tmp):
+    """Phase 12: (a) the CLI on phase 9's config with --record; (b) the same
+    config without its source, --replay of that recording; (c) the codec's
+    bytes against digests pinned from OpenCV."""
+    import hashlib
+
+    from lpslam_tpu_torch.io.jpeg import decode_gray, encode_gray
+    from lpslam_tpu_torch.pipeline import VSLAMTracker, record
+
+    res, checks = {}, {}
+    rec_dir, rep_dir = os.path.join(tmp, "record"), os.path.join(tmp, "replay")
+    os.makedirs(rec_dir)
+    os.makedirs(rep_dir)
+    cfg = pipeline_config(K, os.path.join(tmp, "map12.npz"))
+    cfg_path = os.path.join(tmp, "phase12a.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+
+    # 12a: record
+    codec = _Timed(None)
+    codec.wrap(record, "_encode_jpeg", "encode")
+    reset_launches()
+    try:
+        rc, line, wall = run_cli_in(rec_dir, ["--config", cfg_path, "--record", "--device",
+                                              str(device), "--export-trajectory",
+                                              os.path.join(tmp, "traj12a.txt")])
+    finally:
+        codec.undo()
+    launches_a = read_launches()
+    files = [f for f in os.listdir(rec_dir) if f.endswith(".pb")]
+    pb_path = os.path.join(rec_dir, files[0]) if len(files) == 1 else ""
+    stream = pb_counts(pb_path) if pb_path else {"counts": {}, "cameras": []}
+    met = trajectory_metrics(read_trajectory(os.path.join(tmp, "traj12a.txt")), gt, PIPE_FRAMES)
+    enc = codec.summary().get("encode", {"n": 0, "median_ms": float("nan")})
+    res["record"] = {"cli": line, "rc": rc, **met, "wall_s": wall, "launches": launches_a,
+                     "messages": stream["counts"], "file_bytes":
+                     os.path.getsize(pb_path) if pb_path else 0,
+                     "encode_ms_median": enc["median_ms"], "encoded": enc["n"]}
+    checks.update({
+        "12a: rc 0, no worker error": rc == 0 and line["error"] == "",
+        f"12a: {PIPE_FRAMES} frames processed (none dropped)": line["frames"] == PIPE_FRAMES,
+        "12a: >= 0.9 of the frames after init tracked": met["tracked"] >= 0.9 * met["after"],
+        "12a: one .pb file": len(files) == 1,
+        f"12a: {PIPE_FRAMES} CameraImage messages with image data":
+            len(stream["cameras"]) == PIPE_FRAMES and all(m.image_data for m in stream["cameras"]),
+        "12a: >= 1 SensorGlobalState": stream["counts"].get("global_state", 0) >= 1,
+        "12a: one result message per valid result":
+            stream["counts"].get("result", 0) == line["tracked"],
+        "12a: the three kernels launched": all(n > 0 for n in launches_a.values()),
+    })
+
+    # 12b: replay, the same config without its source
+    cfg_b = json.loads(json.dumps(cfg))
+    cfg_b["datasources"] = []
+    cfg_b["trackers"][0]["configuration"]["map_file"] = os.path.join(tmp, "map12b.npz")
+    cfg_b_path = os.path.join(tmp, "phase12b.json")
+    with open(cfg_b_path, "w") as f:
+        json.dump(cfg_b, f)
+    timed = _Timed(device)
+    timed.wrap(VSLAMTracker, "_process_host", "host_frame")
+    codec = _Timed(None)
+    codec.wrap(record, "_decode_image", "decode")
+    traj = os.path.join(tmp, "traj12b.txt")
+    reset_launches()
+    try:
+        rc, line, wall = run_cli_in(rep_dir, ["--config", cfg_b_path, "--replay", pb_path,
+                                              "--device", str(device), "--export-trajectory",
+                                              traj])
+    finally:
+        timed.undo()
+        codec.undo()
+    launches_b = read_launches()
+    met = trajectory_metrics(read_trajectory(traj), gt, PIPE_FRAMES)
+    host = timed.summary().get("host_frame", {"n": 0, "median_ms": float("nan")})
+    dec = codec.summary().get("decode", {"n": 0, "median_ms": float("nan")})
+    res["replay"] = {"cli": line, "rc": rc, **met, "wall_s": wall, "launches": launches_b,
+                     "fps_wall": line["frames"] / wall, "host_frames": host["n"],
+                     "host_frame_ms_median": host["median_ms"],
+                     "decode_ms_median": dec["median_ms"], "decoded": dec["n"]}
+    bound = pipe_bound("replay")
+    checks.update({
+        "12b: rc 0, no worker error": rc == 0 and line["error"] == "",
+        f"12b: {PIPE_FRAMES} frames processed": line["frames"] == PIPE_FRAMES,
+        "12b: >= 0.9 of the frames after init tracked": met["tracked"] >= 0.9 * met["after"],
+        f"12b: ATE <= {bound:.4f} m": met["ate_m_sim3"] <= bound,
+        "12b: the three kernels launched": all(n > 0 for n in launches_b.values()),
+    })
+
+    # 12c: the codec's bytes on this host
+    t0 = time.perf_counter()
+    wrong = []
+    for i, (h, w) in enumerate(CODEC_SIZES):
+        img = codec_image(h, w, i)
+        for q in CODEC_QUALITIES:
+            data = encode_gray(img, q)
+            back = decode_gray(data)
+            got = (hashlib.sha256(data).hexdigest()[:16],
+                   hashlib.sha256(back.tobytes()).hexdigest()[:16] if back is not None else "")
+            if got != CODEC_DIGESTS[(h, w, q)]:
+                wrong.append((h, w, q))
+    res["codec"] = {"cases": len(CODEC_DIGESTS), "wrong": wrong,
+                    "seconds": time.perf_counter() - t0}
+    checks["12c: codec digests equal OpenCV's"] = not wrong
     res["checks_failed"] = [k for k, ok in checks.items() if not ok]
     return res
 
@@ -1316,6 +1514,30 @@ def main() -> int:
           f"RectifyProcessor {res['rectify_ms_per_frame']} ms per stereo pair (host "
           f"clock: upload, two remaps, read-back), wall {res['wall_s']:.1f} s; launches "
           f"{res['launches']}; on {card}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_record_replay_phase(device, gt_pipe, K_pipe, tmp)
+    for part in ("record", "replay"):
+        for name, n in res[part]["launches"].items():
+            records[name]["launches"] += n
+    print("record_replay: " + json.dumps(res))
+    failed += [f"phase 12: {c}" for c in res["checks_failed"]]
+    a, b = res["record"], res["replay"]
+    ref = JAX_PIPELINE_REF["replay"]
+    print(f"phase 12a: CLI --record {a['cli']['frames']} frames, {a['tracked']} tracked of "
+          f"{a['after']} after init, {a['file_bytes']} B stream {a['messages']}, encode "
+          f"median {a['encode_ms_median']:.2f} ms per 640x480 frame over {a['encoded']}, "
+          f"wall {a['wall_s']:.1f} s; launches {a['launches']}; on {card}")
+    print(f"phase 12b: CLI --replay {b['cli']['frames']} frames, {b['tracked']} tracked of "
+          f"{b['after']} after init (JAX CPU {ref['tracked']}), ATE {b['ate_m_sim3']:.4f} m "
+          f"Sim3 (JAX CPU {ref['ate_m_sim3']}), {b['cli']['keyframes']} keyframes, "
+          f"{b['cli']['landmarks']} landmarks; decode median {b['decode_ms_median']:.2f} ms "
+          f"per frame over {b['decoded']}; {b['fps_wall']:.2f} frames/s over the CLI's wall "
+          f"{b['wall_s']:.1f} s, host path median {b['host_frame_ms_median']:.2f} ms; "
+          f"launches {b['launches']}; on {card}")
+    print(f"phase 12c: {res['codec']['cases']} codec cases, digests "
+          f"{'equal' if not res['codec']['wrong'] else 'WRONG ' + str(res['codec']['wrong'])}; "
+          f"phase 12 {time.perf_counter() - t0:.1f} s")
     if failed:
         raise AssertionError(f"checks failed: {failed}")
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")

@@ -1,4 +1,15 @@
-from .so3 import hat, so3_exp, so3_log, rot_to_quat, quat_log
+from .so3 import (
+    hat,
+    vee,
+    so3_exp,
+    so3_log,
+    quat_to_rot,
+    rot_to_quat,
+    quat_mul,
+    quat_conj,
+    quat_normalize,
+    quat_log,
+)
 from .se3 import (
     SE3,
     se3_exp,
@@ -7,7 +18,13 @@ from .se3 import (
     se3_compose,
     se3_inverse,
     se3_apply,
+    se3_from_Rt,
+    se3_retract,
+    se3_to_matrix,
+    se3_from_matrix,
+    se3_adjoint,
 )
+from .sim3 import sim3_exp, sim3_log, sim3_apply, sim3_compose, sim3_inverse
 from .camera import (
     PinholeCamera,
     project_pinhole,
@@ -17,3 +34,4 @@ from .camera import (
     undistort_map_radtan,
     rectify_maps_stereo,
 )
+from .frames import lpslam_to_optical, optical_to_lpslam

@@ -1,8 +1,8 @@
 """SO(3) Lie-group math, batched (port of lpslam_tpu/geometry/so3.py).
 
-Only what the monocular tracking slice calls: hat, exp/log (quaternion route)
-and the left Jacobian pair used by the SE(3) exp/log maps. float32, every
-function broadcasts over leading batch dimensions.
+hat / vee, exp / log (quaternion route), the quaternion helpers and the left
+Jacobian pair used by the SE(3) exp/log maps. float32, every function
+broadcasts over leading batch dimensions.
 """
 from __future__ import annotations
 
@@ -23,6 +23,11 @@ def hat(w):
         ],
         dim=-2,
     )
+
+
+def vee(W):
+    """Inverse of hat: (...,3,3) -> (...,3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _eye_like(W):
@@ -91,6 +96,10 @@ def quat_mul(a, b):
 
 def quat_conj(q):
     return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_normalize(q):
+    return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
 
 
 def rot_to_quat(R):

@@ -1,10 +1,8 @@
 """The public facade (port of lpslam_tpu/interface/lpslam_manager.py): add
 sources, processors and trackers by name, push images and sensor data,
-register callbacks, use the mapping API, start and stop, on `device`
-(default cuda).
-
-``read_replay_items``, ``compress_image`` and the recording toggles are
-refused (ROADMAP Queue 1 item 20).
+register callbacks (reconstruction, JPEG image, navigation requests), use
+the mapping API, record a session or replay one, start and stop, on `device`
+(default cuda). The live view is refused (ROADMAP Queue 1 item 20c).
 """
 from __future__ import annotations
 
@@ -15,13 +13,9 @@ import numpy as np
 
 from ..pipeline.config import CameraConfig
 from ..pipeline.manager import SlamManager, SlamStatus
+from ..pipeline.record import _encode_jpeg
 
 LpSlamStatus = SlamStatus
-
-
-def _refused(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to lpslam_tpu_torch yet (ROADMAP Queue 1 item 20)")
 
 
 class LpSlamManager:
@@ -69,11 +63,16 @@ class LpSlamManager:
         self._m.set_recording(enabled)
 
     def set_record_images(self, enabled: bool) -> None:
-        if enabled:
-            raise _refused("session recording")
+        self._m.recorder.record_images = bool(enabled)
 
     def read_replay_items(self, filename: str) -> bool:
-        raise _refused("replay")
+        """Add a recorded .pb stream as a source."""
+        try:
+            self._m.add_source_by_name("Replay", {"file": filename})
+            return True
+        except Exception:
+            logging.getLogger("lpslam_tpu_torch").exception("replay of %s failed", filename)
+            return False
 
     # stage registry --------------------------------------------------------
 
@@ -202,7 +201,8 @@ class LpSlamManager:
 
     @staticmethod
     def compress_image(image, quality: int = 70) -> bytes:
-        raise _refused("JPEG compression")
+        """A frame as grey JPEG bytes."""
+        return _encode_jpeg(np.asarray(image), quality)
 
     # status ----------------------------------------------------------------
 

@@ -9,3 +9,4 @@ from .processors import (
 )
 from .sources import FileImageSource, ImageSourceBase, ReplaySource, SyntheticSource
 from .manager import SlamManager, SlamStatus
+from .record import RecordEngine, ReplayEngine

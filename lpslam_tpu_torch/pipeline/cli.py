@@ -3,14 +3,17 @@ the built-in synthetic demo, on `--device` (default cuda).
 
     python -m lpslam_tpu_torch.pipeline.cli --config cfg.json [--device cpu]
     python -m lpslam_tpu_torch.pipeline.cli --synthetic [--frames N] [--mode mono]
+    python -m lpslam_tpu_torch.pipeline.cli --config cfg.json --replay session.pb
 
 Both modes run until the finite sources are done and their frames are
 processed, then print one JSON line: frames processed, valid results, the
 final keyframe and landmark counts, the tracking state, the frame rate and
 the last worker error ("" when none; the exit code is then 1). Both honour
---export-trajectory (TUM format, lpslam frame) and --export-map-csv.
---replay, --record, --record-no-video and --show-live are refused (ROADMAP
-Queue 1 item 20).
+--export-trajectory (TUM format, lpslam frame), --export-map-csv, --record
+(the session to slam_<date>_<time>.pb in the working directory) and
+--record-no-video (the same without camera frames). --replay adds a recorded
+stream as a source to a config. --show-live is refused (ROADMAP Queue 1 item
+20c: it needs a display).
 """
 from __future__ import annotations
 
@@ -19,11 +22,6 @@ import json
 import logging
 import sys
 import time
-
-
-def _refuse(flag: str):
-    raise NotImplementedError(
-        f"{flag} is not ported to lpslam_tpu_torch yet (ROADMAP Queue 1 item 20)")
 
 
 def _wait_until_done(mgr, timeout_s: float, log=None):
@@ -45,10 +43,11 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="lpslam_tpu_torch standalone runner")
     p.add_argument("--config", help="JSON configuration file")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    p.add_argument("--replay", help="replay a recorded .pb stream (refused)")
-    p.add_argument("--record", action="store_true", help="record the session (refused)")
-    p.add_argument("--record-no-video", action="store_true", help="(refused)")
-    p.add_argument("--show-live", action="store_true", help="(refused)")
+    p.add_argument("--replay", help="replay a recorded .pb stream (with --config)")
+    p.add_argument("--record", action="store_true", help="record the session to .pb")
+    p.add_argument("--record-no-video", action="store_true",
+                   help="record sensor values and results but no camera frames")
+    p.add_argument("--show-live", action="store_true", help="(refused: needs a display)")
     p.add_argument("--store-images", metavar="DIR",
                    help="dump every 10th raw frame as PNG into DIR")
     p.add_argument("--logfile", help="log to file")
@@ -60,12 +59,6 @@ def main(argv=None):
     p.add_argument("--export-trajectory", help="write the trajectory (TUM format)")
     p.add_argument("--export-map-csv", help="write the landmark CSV")
     args = p.parse_args(argv)
-
-    for flag, on in (("--replay", args.replay), ("--record", args.record),
-                     ("--record-no-video", args.record_no_video),
-                     ("--show-live", args.show_live)):
-        if on:
-            _refuse(flag)
 
     level = (logging.DEBUG if args.verbose_debug
              else logging.INFO if args.verbose else logging.WARNING)
@@ -94,6 +87,14 @@ def main(argv=None):
         mgr.read_configuration_file(args.config)
     else:
         p.error("--config or --synthetic required")
+    if args.replay:
+        if args.synthetic:
+            p.error("--replay takes --config")
+        mgr.add_source_by_name("Replay", {"file": args.replay})
+    mgr.set_recording(args.record or args.record_no_video or mgr._record_enabled)
+    if args.record_no_video:
+        mgr.recorder.record_images = False
+    mgr.show_live = mgr.show_live or args.show_live
     mgr.on_reconstruction = results.append
     mgr.store_images_dir = args.store_images
     mgr.start()

@@ -1,22 +1,26 @@
 """SlamManager, the pipeline's owner (port of lpslam_tpu/pipeline/manager.py).
 
-It owns the camera, sensor and result queues and two worker threads:
+It owns the camera, sensor and result queues and three worker threads:
 
-- the slam worker pops a camera frame, drains the sensor queue up to the
-  frame's timestamp (the last non-reference global state is the frame's
-  odometry), asks the host application for navigation data, runs the
-  processors, then the trackers, and pushes their results (an invalid
-  result when no tracker produced or deferred one);
-- the notify worker pops results and calls the reconstruction callback.
+- the slam worker refills the camera queue from a replay, pops a camera
+  frame, drains the sensor queue up to the frame's timestamp (the last
+  non-reference global state is the frame's odometry), asks the host
+  application for navigation data, records the frame and its sensor values
+  when recording, runs the processors, then the trackers, and pushes their
+  results (an invalid result when no tracker produced or deferred one);
+- the notify worker pops results and calls the reconstruction callback;
+- the image-callback worker JPEG-encodes frames (quality 70) for the image
+  callback.
 
-Frames come from sources or from ``add_image_from_buffer`` (gray, 3- and
-4-channel BGR(A) weighted as OpenCV's ``cvtColor``, NV12, YUYV, and two eyes
-stacked top/bottom or side by side). Every engine tensor lives on the
-manager's `device`; a CUDA device that does not exist raises.
+Frames come from sources, a replayed recording, or ``add_image_from_buffer``
+(gray, 3- and 4-channel BGR(A) weighted as OpenCV's ``cvtColor``, NV12,
+YUYV, JPEG bytes, and two eyes stacked top/bottom or side by side). A
+recording goes to ``slam_%Y-%m-%d_%H-%M-%S.pb`` in the working directory.
+Every engine tensor lives on the manager's `device`; a CUDA device that does
+not exist raises.
 
-Refused with NotImplementedError (ROADMAP Queue 1 item 20): session
-recording and replay, JPEG input (``compressed=``), the image callback and
-the live view.
+The live view (``show_live``) is refused with NotImplementedError: it needs
+OpenCV's ``imshow`` and a display (ROADMAP Queue 1 item 20c).
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import numpy as np
 import torch
 
 from ..geometry.camera import PinholeCamera
+from ..geometry.so3 import rot_to_quat
+from ..io.jpeg import decode_gray
 from .config import CameraConfig, ConfigError, FullConfig, MarkerConfig, load_config_file
 from .processors import (
     AdjustIntensityProcessor,
@@ -44,6 +50,7 @@ from .queues import (
     ResultQueueEntry,
     SensorQueueEntry,
 )
+from .record import RecordEngine, ReplayEngine, _encode_jpeg
 from .rectify import RectifyProcessor
 from .sources import (
     FileImageSource,
@@ -56,11 +63,11 @@ from .sources import (
 )
 from .trackers import LaserScan, TrackerBase, VSLAMTracker
 
-_RECORD_SLICE = "(ROADMAP Queue 1 item 20)"
 
-
-def _refused(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to lpslam_tpu_torch yet {_RECORD_SLICE}")
+def _live_view_refused() -> NotImplementedError:
+    return NotImplementedError(
+        "the live view (show_live) is refused in lpslam_tpu_torch: it needs OpenCV's "
+        "imshow and a display (ROADMAP Queue 1 item 20c)")
 
 
 def require_device(device) -> torch.device:
@@ -135,6 +142,7 @@ class SlamManager:
         self.camera_queue = BoundedQueue(maxsize=64)
         self.sensor_queue = BoundedQueue(maxsize=256)
         self.result_queue = BoundedQueue(maxsize=64)
+        self.image_cb_queue = BoundedQueue(maxsize=8)
 
         self.sources: list = []
         self.processors: list = []
@@ -142,8 +150,13 @@ class SlamManager:
         self.cameras: dict = {}
         self.markers: dict = {}  # id -> MarkerConfig (known fiducials)
 
+        self.recorder = RecordEngine()
+        self.replay: Optional[ReplayEngine] = None
+        self._record_enabled = False
+
         self._worker: Optional[ManagedThread] = None
         self._notify_worker: Optional[ManagedThread] = None
+        self._image_cb_worker: Optional[ManagedThread] = None
 
         self.on_reconstruction: Optional[Callable] = None
         self.on_image: Optional[Callable] = None
@@ -165,13 +178,13 @@ class SlamManager:
         self.apply_config(load_config_file(path))
 
     def apply_config(self, cfg: FullConfig) -> None:
-        if cfg.manager.record:
-            raise _refused("session recording (manager.record)")
         if cfg.manager.show_live:
-            raise _refused("the live view (manager.show_live)")
+            raise _live_view_refused()
         self.cameras = dict(cfg.cameras)
         for mk in cfg.markers:
             self.markers[mk.marker_id] = mk
+        self._record_enabled = cfg.manager.record
+        self.recorder.record_images = cfg.manager.record_images
         for type_name, conf in cfg.datasources:
             self.add_source_by_name(type_name, conf)
         for type_name, conf in cfg.processors:
@@ -180,8 +193,8 @@ class SlamManager:
             self.add_tracker_by_name(type_name, conf)
 
     def set_recording(self, enabled: bool) -> None:
-        if enabled:
-            raise _refused("session recording")
+        """Record the session (from the next start())."""
+        self._record_enabled = bool(enabled)
 
     def set_camera_configuration(self, cam: CameraConfig):
         self.cameras[cam.number] = cam
@@ -253,10 +266,8 @@ class SlamManager:
     def start(self):
         if self._running:
             return
-        if self.on_image is not None:
-            raise _refused("the image callback (JPEG frames)")
         if self.show_live:
-            raise _refused("the live view")
+            raise _live_view_refused()
         for tracker in self.trackers:
             tracker.start(self.sensor_queue)
         for src in self.sources:
@@ -266,6 +277,11 @@ class SlamManager:
         self._worker.start()
         self._notify_worker = ManagedThread(self._notify, name="notify")
         self._notify_worker.start()
+        self._image_cb_worker = ManagedThread(self._image_cb, name="image-cb")
+        self._image_cb_worker.start()
+        if self._record_enabled:
+            self.recorder.set_output_file(time.strftime("slam_%Y-%m-%d_%H-%M-%S.pb"))
+            self.recorder.start()
         self._running = True
 
     def stop(self):
@@ -283,8 +299,11 @@ class SlamManager:
         while not self.result_queue.empty() and time.monotonic() < deadline:
             time.sleep(0.01)
         self._notify_worker.stop()
+        self._image_cb_worker.stop()
         for tracker in self.trackers:
             tracker.stop()
+        if self._record_enabled:
+            self.recorder.stop()
         self._running = False
 
     # -- external-buffer ingestion ------------------------------------------
@@ -299,9 +318,13 @@ class SlamManager:
         the planar and packed forms take the flat bytes plus the full
         frame's width and height. stereo_layout: "none", "top_bottom" or
         "side_by_side" splits the frame into two eyes. False when the buffer
-        is too small."""
+        is too small; `compressed` (JPEG bytes) replaces the buffer, False
+        when they do not decode."""
         if compressed is not None:
-            raise _refused("JPEG input (compressed=)")
+            buffer = decode_gray(compressed)
+            if buffer is None:
+                return False
+            pixel_format = "gray"
         if pixel_format == "nv12":
             flat = np.frombuffer(np.ascontiguousarray(buffer), np.uint8)
             if width * height > flat.size:
@@ -427,7 +450,7 @@ class SlamManager:
 
     def get_status(self) -> SlamStatus:
         st = SlamStatus(fps=self._fps.fps, frames_processed=self._frames)
-        for w in (self._worker, self._notify_worker):
+        for w in (self._worker, self._notify_worker, self._image_cb_worker):
             if w is not None and w.error is not None:
                 st.error = repr(w.error)
                 break
@@ -444,11 +467,15 @@ class SlamManager:
     # -- workers ------------------------------------------------------------
 
     def _work(self, thread: ManagedThread):
+        if self.replay is not None:
+            self.replay.stream_more()
         entry = self.camera_queue.pop(timeout=0.1)
         if entry is None or not entry.valid:
             return
         self._fps.tick()
         self._frames += 1
+        if self.on_image is not None:
+            self.image_cb_queue.push(entry)
 
         # sensor values up to the frame's timestamp (and the first after it)
         sensor_values = []
@@ -481,6 +508,9 @@ class SlamManager:
             entry.state_map = nav_map
         if nav_map is None:
             nav_map = entry.state_map
+
+        if self._record_enabled:
+            self._record(entry, sensor_values)
 
         # every 10th raw frame as PNG
         if self.store_images_dir and self._frames % 10 == 0:
@@ -518,17 +548,33 @@ class SlamManager:
                 orientation_wxyz=np.asarray([1.0, 0, 0, 0]), valid=False,
             ))
 
+    def _record(self, entry: CameraQueueEntry, sensor_values) -> None:
+        """The frame (with its navigation states) and its sensor values."""
+        self.recorder.store_camera_image(entry)
+        for sv in sensor_values:
+            if sv.kind == "imu":
+                self.recorder.store_imu(sv.timestamp, sv.acc, sv.gyro)
+            elif sv.kind == "global_state" and sv.state is not None:
+                pos, R = sv.state
+                q = rot_to_quat(torch.as_tensor(np.asarray(R), dtype=torch.float32)).numpy()
+                self.recorder.store_global_state(sv.timestamp, pos, q, reference=sv.reference)
+
     def _push_results(self, results) -> bool:
         sent = False
         for res in results:
-            self.result_queue.push(ResultQueueEntry(
+            rq = ResultQueueEntry(
                 timestamp=res.timestamp,
                 position=res.position,
                 orientation_wxyz=res.orientation_wxyz,
                 valid=res.valid,
                 position_sigma=getattr(res, "position_sigma", None),
                 orientation_sigma=getattr(res, "orientation_sigma", 0.0),
-            ))
+            )
+            if self._record_enabled and res.valid:
+                self.recorder.store_result(
+                    res.timestamp, res.position, res.orientation_wxyz,
+                    position_sigma=rq.position_sigma, orientation_sigma=rq.orientation_sigma)
+            self.result_queue.push(rq)
             sent = True
         return sent
 
@@ -538,3 +584,12 @@ class SlamManager:
             return
         if self.on_reconstruction is not None:
             self.on_reconstruction(res)
+
+    def _image_cb(self, thread: ManagedThread):
+        entry = self.image_cb_queue.pop(timeout=0.1)
+        if entry is None or self.on_image is None:
+            return
+        second = None
+        if entry.image_second is not None:
+            second = _encode_jpeg(entry.image_second, quality=70)
+        self.on_image(entry.timestamp, _encode_jpeg(entry.image, quality=70), second)

@@ -5,11 +5,11 @@ lpslam_tpu/pipeline/sources.py).
   io/png.py) at a fixed rate, optionally looping;
 - SyntheticSource renders the planar-scene sequence and publishes each
   frame's ground-truth pose (plus optional noise) as a global state on the
-  sensor queue, and optionally IMU samples.
+  sensor queue, and optionally IMU samples;
+- ReplaySource streams a recorded .pb session.
 
-The live camera sources (OpenCV, Zed, ZedSdk) and the replay source keep
-their schema and names but raise NotImplementedError when built: ROADMAP
-Queue 1 items 21 and 20.
+The live camera sources (OpenCV, Zed, ZedSdk) keep their schema and names
+but raise NotImplementedError when built: ROADMAP Queue 1 item 21.
 """
 from __future__ import annotations
 
@@ -243,6 +243,29 @@ class ZedSdkSource(_RefusedSource):
     )
 
 
-class ReplaySource(_RefusedSource):
-    what = "the replay source (ROADMAP Queue 1 item 20)"
+class ReplaySource(ImageSourceBase):
+    """A recorded .pb stream as a source (record.ReplayEngine): frames to
+    the camera queue, IMU and global states to the sensor queue, optionally
+    paced at `fps`."""
+
     schema = ConfigOptions().required("file", str).optional("fps", float, 0.0)
+
+    def __init__(self, config: Optional[dict] = None):
+        super().__init__(config)
+        from .record import ReplayEngine
+
+        self._engine = ReplayEngine(self.cfg["file"])
+
+    def start(self, camera_queue: PyBoundedQueue):
+        self._engine.attach(camera_queue, self.sensor_queue)
+        super().start(camera_queue)
+
+    def _loop(self, thread: ManagedThread):
+        if self._engine.stream_more() == 0:
+            time.sleep(0.02)
+        if self.cfg["fps"] > 0:
+            time.sleep(1.0 / self.cfg["fps"])
+
+    @property
+    def done(self) -> bool:
+        return self._engine.done

@@ -31,7 +31,8 @@ one; run them there with
   frames equal its CPU run within 1e-4 gray levels (the grids are the same
   numpy arrays; the bilinear blend may contract differently); SlamManager
   with the synthetic source processes every frame with no worker error and
-  launches the kernels.
+  launches the kernels; so does a session recorded with RecordEngine and
+  replayed through the Replay source.
 - Loop closing on the card against the same calls on the CPU: the shipped
   vocabulary's word ids and tf counts bit-equal (an fp32 ±1 product, exact
   with TF32 off); the normalized BoW vector within 1e-6 relative (its norm
@@ -262,3 +263,38 @@ def test_manager_on_card_processes_frames(cuda_device):
     assert st.error == "" and st.frames_processed == 12, st
     assert tracker.engine.map.lm_pos.is_cuda
     assert patch.LAUNCHES >= before + 12
+
+
+def test_replay_on_card_runs_the_kernels(cuda_device, tmp_path):
+    import time
+
+    from lpslam_tpu_torch.io.synthetic import make_sequence
+    from lpslam_tpu_torch.pipeline.config import CameraConfig
+    from lpslam_tpu_torch.pipeline.manager import SlamManager
+    from lpslam_tpu_torch.pipeline.queues import CameraQueueEntry
+    from lpslam_tpu_torch.pipeline.record import RecordEngine
+
+    seq = make_sequence(num_frames=12, h=240, w=320, seed=0)
+    path = str(tmp_path / "session.pb")
+    rec = RecordEngine(jpeg_quality=95)
+    rec.set_output_file(path)
+    rec.start()
+    for t, img in enumerate(seq.images):
+        rec.store_camera_image(CameraQueueEntry(timestamp=t / 20.0, image=img))
+    rec.stop()
+    mgr = SlamManager(device=cuda_device)
+    mgr.set_camera_configuration(CameraConfig(number=0, fx=float(seq.K[0, 0]),
+                                              fy=float(seq.K[1, 1]), cx=float(seq.K[0, 2]),
+                                              cy=float(seq.K[1, 2])))
+    src = mgr.add_source_by_name("Replay", {"file": path})
+    mgr.add_tracker_by_name("VSLAM", {"keypoints": 512, "max_keyframes": 16,
+                                      "max_landmarks": 4096})
+    before = (patch.LAUNCHES, fast_nms.LAUNCHES)
+    mgr.start()
+    t0 = time.time()
+    while not (src.done and mgr.camera_queue.empty()) and time.time() - t0 < 300:
+        time.sleep(0.05)
+    mgr.stop()
+    st = mgr.get_status()
+    assert st.error == "" and st.frames_processed == 12, st
+    assert patch.LAUNCHES >= before[0] + 12 and fast_nms.LAUNCHES >= before[1] + 12

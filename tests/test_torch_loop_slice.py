@@ -343,12 +343,14 @@ def test_schema_and_unported_calls():
     tr = VSLAMTracker(cam, {"_comment": "ignored", "keypoints": 64.0}, device="cpu")
     assert tr.cfg["keypoints"] == 64
     assert tr.status()["state"] == "NOT_INITIALIZED"
-    # what stays refused: record/replay, the live sources, calibration,
-    # fisheye and omni rectification
-    for src, conf in ((ReplaySource, {"file": "x.pb"}), (OpenCVCameraSource, {}),
-                      (ZedOpenCaptureSource, {}), (ZedSdkSource, {})):
-        with pytest.raises(NotImplementedError, match="item 2[01]"):
+    # what stays refused: the live sources, calibration, fisheye and omni
+    # rectification (replay is ported: a missing file raises as in JAX)
+    for src, conf in ((OpenCVCameraSource, {}), (ZedOpenCaptureSource, {}),
+                      (ZedSdkSource, {})):
+        with pytest.raises(NotImplementedError, match="item 21"):
             src(conf)
+    with pytest.raises(FileNotFoundError):
+        ReplaySource({"file": "/nonexistent/x.pb"})
     with pytest.raises(ConfigError):
         ReplaySource({})                           # the schema still parses first
     with pytest.raises(NotImplementedError, match="item 22"):

@@ -55,10 +55,13 @@ def test_zed_example_refuses_only_when_built():
 
     cfg = tc.load_config_file(os.path.join(REPO, "examples", "zed_live_record.json"))
     assert cfg.manager.record and cfg.datasources[0][0] == "Zed"
-    with pytest.raises(NotImplementedError, match="item 20"):
-        SlamManager(cfg, device="cpu")                        # recording
     with pytest.raises(NotImplementedError, match="item 21"):
-        SlamManager(dataclasses.replace(cfg, manager=tc.ManagerConfig()), device="cpu")
+        SlamManager(cfg, device="cpu")                        # the ZED source
+    with pytest.raises(NotImplementedError, match="item 23"):
+        SlamManager(dataclasses.replace(cfg, datasources=[]), device="cpu")   # fisheye
+    # recording itself is ported
+    mgr = SlamManager(dataclasses.replace(cfg, datasources=[], processors=[]), device="cpu")
+    assert mgr._record_enabled and mgr.recorder.record_images == cfg.manager.record_images
 
 
 @pytest.mark.parametrize("entry", [

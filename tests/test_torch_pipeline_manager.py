@@ -16,8 +16,9 @@ SlamManager, CLI and LpSlamManager, on the CPU.
   occupancy grid has occupied cells, no worker error.
 - A two-slot camera queue keeps the newest frames (drop-oldest); a worker
   exception shows in SlamStatus.error; every refused option and source
-  raises NotImplementedError; the default device is the card and a missing
-  one raises.
+  raises NotImplementedError naming its ROADMAP item (the recording,
+  replay and JPEG paths no longer refuse); the default device is the card
+  and a missing one raises.
 """
 import json
 import os
@@ -187,12 +188,7 @@ def test_refused_options_and_sources(tmp_path):
     from lpslam_tpu_torch.pipeline.manager import SlamManager
 
     mgr = SlamManager(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        mgr.set_recording(True)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        mgr.add_image_from_buffer(0.0, None, compressed=b"\xff\xd8")
-    for name, conf, item in (("Replay", {"file": "r.pb"}, 20), ("OpenCV", {}, 21),
-                             ("Zed", {}, 21), ("ZedSdk", {}, 21)):
+    for name, conf, item in (("OpenCV", {}, 21), ("Zed", {}, 21), ("ZedSdk", {}, 21)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             mgr.add_source_by_name(name, conf)
     with pytest.raises(NotImplementedError, match="item 22"):
@@ -202,20 +198,22 @@ def test_refused_options_and_sources(tmp_path):
         distortion=np.zeros(4, np.float32), width=160, height=120))
     with pytest.raises(NotImplementedError, match="item 23"):
         mgr.add_processor_by_name("Rectify", {})
-    mgr.on_image = lambda *a: None
-    with pytest.raises(NotImplementedError, match="item 20"):
+    # the live view stays refused (it needs a display); record and replay,
+    # JPEG input and the image callback are ported (tests/test_torch_record.py)
+    mgr.show_live = True
+    with pytest.raises(NotImplementedError, match="item 20c"):
         mgr.start()
-    mgr.on_image, mgr.show_live = None, True
-    with pytest.raises(NotImplementedError, match="item 20"):
-        mgr.start()
-    for flags in (["--replay", "x.pb"], ["--record"], ["--record-no-video"], ["--show-live"]):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            cli.main(["--synthetic", "--device", "cpu", *flags])
+    with pytest.raises(NotImplementedError, match="item 20c"):
+        cli.main(["--synthetic", "--device", "cpu", "--show-live"])
+    mgr = SlamManager(device="cpu")
+    mgr.set_recording(True)
+    assert mgr.add_image_from_buffer(0.0, None, compressed=b"\xff\xd8") is False
     lm = LpSlamManager(device="cpu")
-    for call in (lambda: lm.read_replay_items("x.pb"), lambda: lm.compress_image(np.zeros((4, 4))),
-                 lambda: lm.set_record(True), lambda: lm.set_record_images(True)):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            call()
+    lm.set_record(True)
+    lm.set_record_images(False)
+    assert lm._m.recorder.record_images is False
+    assert lm.read_replay_items(str(tmp_path / "missing.pb")) is False
+    assert lm.compress_image(np.zeros((4, 4)))[:3] == b"\xff\xd8\xff"
     assert lm.add_image_data_source("Zed", {}) is False       # the facade swallows it
 
 

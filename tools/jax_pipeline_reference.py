@@ -11,15 +11,21 @@ phases 9-11: the reference that sets their bounds (JAX_PIPELINE_REF).
 - phase 10: the JAX LpSlamManager localizing in that map from the same
   buffers (chip_smoke.feed_localization) with one laser scan;
 - phase 11: `lpslam_tpu.eval.run_dataset` with chip_smoke.ROOM_ARGS, with
-  the closures its LoopCloser accepts.
+  the closures its LoopCloser accepts;
+- phase 12: the JAX SlamManager records phase 9's session (OpenCV JPEG at
+  quality 90; set_recording(True), as its CLI's --record) and replays the
+  stream on phase 9's config without its source (the Replay source, as its
+  CLI's --replay); the replay's trajectory from its results, and the
+  stream's messages by type.
 
 Everything it renders comes from the JAX package (the synthetic sequence of
 phases 9-10 from `lpslam_tpu.io.synthetic.make_sequence`, the room from
 run_dataset's own benchmark); chip_smoke gives only the configurations and
-the feeding. Prints one JSON line {"cli": ..., "localize": ..., "room": ...}:
-tracked frames, keyframes, landmarks and ATE of each, and the room's
-accepted closures. Rerun it whenever those configurations change. Takes
-~9 min and ~3 GB on the CPU.
+the feeding. Prints one JSON line {"cli": ..., "localize": ..., "room": ...,
+"replay": ...}: tracked frames, keyframes, landmarks and ATE of each, the
+room's accepted closures and the recording's messages. Rerun it whenever
+those configurations change. Takes ~10 min and ~3 GB on the CPU
+(--replay-only: phase 12 alone).
 """
 from __future__ import annotations
 
@@ -63,9 +69,63 @@ def jax_pipeline_sequence():
     return seq.images, np.stack([np.asarray(p.t, np.float64) for p in seq.poses_wc]), seq.K
 
 
+def record_replay(tmp, gt, K, SlamManager, ate_rmse) -> dict:
+    """Phase 12 in the JAX package: record phase 9's session, replay it."""
+    from lpslam_tpu.io import lpslam_pb as pb
+
+    rec_dir, here = os.path.join(tmp, "record12"), os.getcwd()
+    os.makedirs(rec_dir)
+    cfg = smoke.pipeline_config(K, os.path.join(tmp, "map12.npz"))
+    cfg_path = os.path.join(tmp, "phase12a.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    mgr = SlamManager()
+    mgr.read_configuration_file(cfg_path)
+    mgr.set_recording(True)
+    os.chdir(rec_dir)                   # the recording goes to the cwd
+    try:
+        mgr.start()
+        _wait_and_stop(mgr)
+    finally:
+        os.chdir(here)
+    (name,) = [f for f in os.listdir(rec_dir) if f.endswith(".pb")]
+    path = os.path.join(rec_dir, name)
+    counts = {}
+    with pb.ProtoStreamReader(path) as r:
+        for t, _ in r:
+            counts[t] = counts.get(t, 0) + 1
+    cfg["datasources"] = []
+    cfg["trackers"][0]["configuration"]["map_file"] = os.path.join(tmp, "map12b.npz")
+    cfg_path = os.path.join(tmp, "phase12b.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    mgr = SlamManager()
+    mgr.read_configuration_file(cfg_path)
+    mgr.add_source_by_name("Replay", {"file": path})
+    results = []
+    mgr.on_reconstruction = results.append
+    t0 = time.perf_counter()
+    mgr.start()
+    _wait_and_stop(mgr)
+    st = mgr.get_status()
+    stamped = [(r.timestamp, r.position) for r in results if r.valid]
+    met = smoke.trajectory_metrics(stamped, gt, smoke.PIPE_FRAMES, ate_rmse)
+    out = {**met, "frames": st.frames_processed, "keyframes": st.keyframes,
+           "landmarks": st.landmarks, "state": st.localization, "error": st.error,
+           "file_bytes": os.path.getsize(path),
+           "messages": {"camera_image": counts.get(pb.MSG_CAMERA_IMAGE, 0),
+                        "global_state": counts.get(pb.MSG_SENSOR_GLOBAL_STATE, 0),
+                        "imu": counts.get(pb.MSG_SENSOR_IMU, 0),
+                        "result": counts.get(pb.MSG_RESULT, 0)},
+           "seconds": time.perf_counter() - t0}
+    print("replay " + json.dumps(out), file=sys.stderr, flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--skip-room", action="store_true", help="phases 9-10 only")
+    p.add_argument("--skip-room", action="store_true", help="no phase 11")
+    p.add_argument("--replay-only", action="store_true", help="phase 12 only")
     args = p.parse_args(argv)
 
     from lpslam_tpu.eval import ate_rmse, run_dataset
@@ -76,6 +136,10 @@ def main(argv=None) -> int:
     images, gt, K = jax_pipeline_sequence()
     out = {"device": "cpu (JAX)"}
     with tempfile.TemporaryDirectory() as tmp:
+        if args.replay_only:
+            out["replay"] = record_replay(tmp, gt, K, SlamManager, ate_rmse)
+            print(json.dumps(out))
+            return 0
         map_file = os.path.join(tmp, "map.npz")
         cfg9 = os.path.join(tmp, "phase9.json")
         with open(cfg9, "w") as f:
@@ -140,6 +204,7 @@ def main(argv=None) -> int:
                                # accepted (k_new, candidate, n_inliers)
                                "closures": [[v[0], v[1], v[3]] for v in verdicts if v[4]],
                                "seconds": time.perf_counter() - t0}
+        out["replay"] = record_replay(tmp, gt, K, SlamManager, ate_rmse)
     print(json.dumps(out))
     return 0
 
