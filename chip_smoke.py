@@ -9,8 +9,9 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
 3. the patch kernel, 3b. the FAST+NMS kernel in both forms (fixed ceiling,
    and each frame's own ceiling with its max pass), each against its plain
    PyTorch version on the card, at the shapes the main paths give it (B = 16
-   per level, B = 1 and 2 at 480x640) plus border, tail, small-level and
-   flat-frame cases; must be bit-equal. Each kernel is timed three ways:
+   per level, B = 1 and 2 at 480x640, and phase 13's HD720 stereo pair,
+   B = 2 at 720x1280 / 600x1067 / 500x889) plus border, tail, small-level
+   and flat-frame cases; must be bit-equal. Each kernel is timed three ways:
    the device time of the kernel alone (a CUDA graph of launches replayed
    between two events; on the same input again, which the 50 MB L2 may
    hold, and rotating over inputs that exceed it), the host cost of one
@@ -61,7 +62,37 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    kernels launched on the replay path; (c) the codec's bytes and pixels on
    this host against sha256 digests pinned from OpenCV (CODEC_DIGESTS).
    It prints the median encode and decode ms per 640x480 frame and the
-   replay's frames/s.
+   replay's frames/s;
+13. the live session of examples/zed_live_record.json at HD720 (64 frames
+   of the room through that config's fisheye lens, both eyes, 12 cm apart,
+   rendered once; JAX_ZED_REF from tools/jax_pipeline_reference.py
+   --zed-only): (a) the CLI on the config as shipped, in a temp directory,
+   the camera a double behind a stand-in cv2 module (installed for this
+   phase only) serving the pairs as side-by-side YUYV, the session ended
+   through the CLI's own loop once every frame is processed (the source is
+   marked done, the flag the CLI polls): 64 processed, none dropped, the
+   source's gains and the recording's image and result counts JAX's,
+   tracked after init >= 0.9 where JAX's is (else no fewer than JAX's - 6),
+   Sim3 ATE within max(1.5 x, + 0.02 m) of JAX's; (b) the pair rectified
+   through eval/run_dataset.py's build_rectifier (fisheye, on the card) and
+   VSLAMTracker in stereo with the config's tracker options and K_new, its
+   vocabulary trained lazily on the card: K_new and fx*b those of
+   cv2.fisheye.stereoRectify, JAX's word count, no closure, >= 0.9
+   tracked, ATE (no scale) within the same rule; (c) (a) with the camera
+   paced at 30 frames/s: frames pushed, processed, dropped, the camera
+   queue's depth and the slam worker's median ms per frame, no limit;
+14. vocabulary training on phase 7's frames: ORB on the card, the 32^3
+   tree on lap 1's descriptors (a document per frame) and the lazy flat
+   vocabulary (the first 4096, 512 words), each and the shipped one scored
+   as tools/vocab_quality.py does (same / different place similarity,
+   top-1 retrieval within 0.6 m): the tree's words within 10% of the JAX
+   package's on the same frames, its top-1 no lower than JAX's - 0.10 and
+   the separation of the tree and of the flat vocabulary no lower than 0.9 x
+   JAX's (JAX_VOCAB_REF, tools/jax_loop_reference.py --vocab-only); both
+   trained again on the CPU with the card's initial draws fed in, which must
+   give the card's words bit for bit (idf equal for the tree, within 1 ulp
+   for the flat vocabulary, whose log runs on each device); training
+   seconds synchronized.
 Phases 9-12 check that no worker or tracker error was recorded and that
 each of the three kernels launched; each prints its frames/s and wall time.
 Each path resets the kernels' launch counters just before its
@@ -74,7 +105,7 @@ the scale) under max(1.5 x, + 0.02 m) of the JAX package's CPU run on the
 same frames for stereo and RGB-D (JAX_CPU_ATE).
 
 The line before the last is the per-kernel JSON record: launches summed
-over the paths of phases 4-12; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
+over the paths of phases 4-14; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
 three levels at B = 16; `enqueue_us` the mean over them; `levels` the
 per-level and B = 1 readings. The last line is {"ok": true, "device": {...}}.
 """
@@ -380,12 +411,13 @@ def fast_operations(img, thr_hi: float = 20.0, thr_lo: float = 7.0):
     return 12 * b * h * w + shared + 82 * n_lo + 19 * n_hi, b * h * w + shared, counts
 
 
-def level_cases():
-    """(H, W, N) per pyramid level at the operating point."""
+def level_cases(h: int = 480, w: int = 640):
+    """(H, W, N) per pyramid level at the operating point (at HD720 with
+    (720, 1280): 720x1280, 600x1067, 500x889)."""
     from lpslam_tpu_torch.kernels.orb import _level_budgets
     from lpslam_tpu_torch.kernels.pyramid import pyramid_shapes
 
-    shapes = pyramid_shapes(480, 640, LEVELS, 1.2)
+    shapes = pyramid_shapes(h, w, LEVELS, 1.2)
     ks = _level_budgets(KEYPOINTS, LEVELS, 1.2)
     return [(h, w, k) for (h, w), k in zip(shapes, ks)]
 
@@ -411,29 +443,32 @@ def check_patch_kernel(device, seed: int = 0):
 
     levels = []
     max_err = 0.0
-    for b in (CHUNK, 1):
-        for h, w, n in level_cases():
-            img, xy = inputs(b, h, w, n)
-            got = patch.extract_patches_cuda(img, xy)
-            want = patch.extract_patches_reference(img, xy)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"patch kernel differs at level {h}x{w} B={b}")
-            max_err = max(max_err, float((got - want).abs().max()))
-            n_bytes = patch_bytes(img, xy)
-            warm, cold = device_times(
-                launch_on, lambda: (*inputs(b, h, w, n), torch.empty_like(got)), n_bytes)
-            bound, by = bound_of(n_bytes)
-            rec = {"B": b, "H": h, "W": w, "N": n, "device_ms": warm, "device_cold_ms": cold,
-                   "enqueue_us": enqueue_us(lambda: patch.extract_patches_cuda(img, xy)),
-                   "ms": cuda_ms(lambda: patch.extract_patches_cuda(img, xy)),
-                   "plain_ms": cuda_ms(lambda: patch.extract_patches_reference(img, xy)),
-                   "bytes": n_bytes, "bound_ms": bound, "bound_by": by}
-            levels.append(rec)
-            print(f"patch {h}x{w} B={b} N={n}: bit-equal, device {warm:.4f} ms (L2-warm), "
-                  f"{cold:.4f} ms (cold), bound {bound:.4f} ms ({by}), share "
-                  f"{bound / warm:.2f}; wrapper {rec['enqueue_us']:.1f} us/call, event mean "
-                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
+    # the chunk loop's B = CHUNK and the host path's B = 1 at 480x640, and
+    # the HD720 stereo pair of phase 13 (B = 2)
+    cases = ([(CHUNK, c) for c in level_cases()] + [(1, c) for c in level_cases()]
+             + [(2, c) for c in level_cases(*ZED_SIZE)])
+    for b, (h, w, n) in cases:
+        img, xy = inputs(b, h, w, n)
+        got = patch.extract_patches_cuda(img, xy)
+        want = patch.extract_patches_reference(img, xy)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"patch kernel differs at level {h}x{w} B={b}")
+        max_err = max(max_err, float((got - want).abs().max()))
+        n_bytes = patch_bytes(img, xy)
+        warm, cold = device_times(
+            launch_on, lambda: (*inputs(b, h, w, n), torch.empty_like(got)), n_bytes)
+        bound, by = bound_of(n_bytes)
+        rec = {"B": b, "H": h, "W": w, "N": n, "device_ms": warm, "device_cold_ms": cold,
+               "enqueue_us": enqueue_us(lambda: patch.extract_patches_cuda(img, xy)),
+               "ms": cuda_ms(lambda: patch.extract_patches_cuda(img, xy)),
+               "plain_ms": cuda_ms(lambda: patch.extract_patches_reference(img, xy)),
+               "bytes": n_bytes, "bound_ms": bound, "bound_by": by}
+        levels.append(rec)
+        print(f"patch {h}x{w} B={b} N={n}: bit-equal, device {warm:.4f} ms (L2-warm), "
+              f"{cold:.4f} ms (cold), bound {bound:.4f} ms ({by}), share "
+              f"{bound / warm:.2f}; wrapper {rec['enqueue_us']:.1f} us/call, event mean "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
     # tail: a keypoint count no block size divides, one frame
     img = torch.from_numpy((rng.random((1, 37, 45)) * 255).astype(np.float32)).to(device)
     xy = torch.from_numpy(rng.uniform(-5, 50, (1, 13, 2)).astype(np.float32)).to(device)
@@ -573,6 +608,12 @@ def check_fast_kernel(device, seed: int = 1):
         for kind in kinds:
             img = checked(kind, b, 480, 640)
         print(f"fast_nms 480x640 B={b}: both forms and the max pass bit-equal")
+        for lv, rec in zip(levels, timed(img)):
+            lv.append(rec)
+    for h, w, _ in level_cases(*ZED_SIZE):  # phase 13's HD720 stereo pair
+        for kind in kinds:
+            img = checked(kind, 2, h, w)
+        print(f"fast_nms {h}x{w} B=2: both forms and the max pass bit-equal")
         for lv, rec in zip(levels, timed(img)):
             lv.append(rec)
     # the operation-bound end: noise, where every pixel is a corner candidate
@@ -1388,6 +1429,512 @@ def run_record_replay_phase(device, gt, K, tmp):
     return res
 
 
+# phase 13: the live-camera session of examples/zed_live_record.json at the
+# ZED's HD720 (1280x720 per eye). The frames are the room (the port's
+# renderer) seen through that config's fisheye lens by both eyes, 12 cm
+# apart, at the room's per-frame motion; a camera double serves them as the
+# ZED's side-by-side YUYV. tools/jax_pipeline_reference.py --zed-only runs
+# the JAX package on the same bytes (JAX_ZED_REF).
+ZED_FRAMES = 64
+ZED_FPS = 30.0
+ZED_SIZE = (720, 1280)
+ZED_BASELINE = 0.12
+ZED_EXAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                           "zed_live_record.json")
+# the rectified pair of 13b: cv2.fisheye.stereoRectify of the config's
+# camera on both eyes (tests/test_torch_camera_models.py pins these)
+ZED_RECT_F, ZED_RECT_FXB = 600.57326876, 72.06879225
+# OpenCV's VideoCapture property ids, for the stand-in cv2 module
+CAP_PROPS = {"CAP_PROP_FRAME_WIDTH": 3, "CAP_PROP_FRAME_HEIGHT": 4, "CAP_PROP_FPS": 5,
+             "CAP_PROP_FOURCC": 6, "CAP_PROP_GAIN": 14, "CAP_PROP_EXPOSURE": 15,
+             "CAP_PROP_CONVERT_RGB": 16, "CAP_PROP_AUTO_EXPOSURE": 21}
+# tools/jax_pipeline_reference.py --zed-only on the CPU (the JAX package on
+# render_zed's bytes): 13a's session and 13b's rectified pair
+JAX_ZED_REF = {
+    "cli": {"frames": 64, "tracked": 64, "first_valid": 0, "after": 64,
+            "ate_m_sim3": 0.05086346029268562,
+            "gains": [62, 61, 65, 68, 65, 59, 56, 59, 65, 68, 65, 61],
+            "messages": {"camera_image": 64, "result": 64}, "keyframes": 14},
+    "rectified": {"focal_x_baseline": 72.06879225113497, "tracked": 64,
+                  "ate_m": 0.0022608995094494247, "keyframes": 14, "vocab_words": 313,
+                  "closures": []},
+}
+
+
+def zed_camera():
+    """The camera of examples/zed_live_record.json: K (3, 3), D (4,)."""
+    with open(ZED_EXAMPLE) as f:
+        c = json.load(f)["cameras"][0]
+    K = np.array([[c["fx"], 0, c["cx"]], [0, c["fy"], c["cy"]], [0, 0, 1.0]])
+    return K, np.asarray(c["distortion"], np.float64)
+
+
+def render_zed(n: int = ZED_FRAMES):
+    """Both eyes' uint8 frames (n, 720, 1280) and the left eye's
+    ground-truth centres: the room rendered through the fisheye lens (each
+    pixel's ray from the port's undistort_points_fisheye)."""
+    from lpslam_tpu_torch.geometry.camera import undistort_points_fisheye
+    from lpslam_tpu_torch.io import SyntheticBenchmark
+
+    K, D = zed_camera()
+    h, w = ZED_SIZE
+    ds = SyntheticBenchmark(num_frames=n, h=h, w=w, seed=0, stereo=True,
+                            turns=1.08 * n / 600.0, fps=ZED_FPS)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    xy = np.stack([(xs - K[0, 2]) / K[0, 0], (ys - K[1, 2]) / K[1, 1]], -1)
+    und = undistort_points_fisheye(torch.from_numpy(xy.astype(np.float32)),
+                                   torch.from_numpy(D.astype(np.float32))).numpy()
+    ds._rays = np.concatenate([und.astype(np.float64), np.ones((h, w, 1))], axis=-1)
+    ds.intr["baseline"] = ZED_BASELINE
+    left, right = [], []
+    for fr in ds:
+        left.append(np.clip(fr.image, 0, 255).astype(np.uint8))
+        right.append(np.clip(fr.image_right, 0, 255).astype(np.uint8))
+    return np.stack(left), np.stack(right), ds.ground_truth().positions
+
+
+class ZedDouble:
+    """The camera behind a stand-in VideoCapture: serves the pairs as the
+    ZED's side-by-side YUYV (Y = the frames, U = V = 128), paced at `fps`
+    when given, then (False, None); records each frame's serving time and
+    every gain set."""
+
+    def __init__(self, left, right, fps: float = 0.0):
+        self.left, self.right, self.fps = left, right, fps
+        self.served, self.gains = [], []
+        self.t0 = None
+
+    def capture(self, device):
+        double = self
+
+        class Capture:
+            def isOpened(self):
+                return True
+
+            def set(self, prop, value):
+                if prop == CAP_PROPS["CAP_PROP_GAIN"]:
+                    double.gains.append(value)
+                return True
+
+            def read(self):
+                return double.read()
+
+            def release(self):
+                pass
+
+        return Capture()
+
+    def read(self):
+        i = len(self.served)
+        if i >= len(self.left):
+            return False, None
+        if self.fps > 0:
+            if self.t0 is None:
+                self.t0 = time.perf_counter()
+            wait = self.t0 + i / self.fps - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+        y = np.concatenate([self.left[i], self.right[i]], axis=1)
+        self.served.append(time.time())
+        return True, np.dstack([y, np.full_like(y, 128)])
+
+    def frame_of(self, ts: float) -> int:
+        """The frame a source timestamp (taken after its read) belongs to."""
+        return int(np.searchsorted(np.asarray(self.served), ts, side="right") - 1)
+
+
+@contextlib.contextmanager
+def standin_cv2(double):
+    """sys.modules["cv2"] is a stand-in whose VideoCapture is `double`'s
+    capture (the property ids OpenCV's), inside the block only."""
+    import types
+
+    mod = types.ModuleType("cv2")
+    for name, value in CAP_PROPS.items():
+        setattr(mod, name, value)
+    mod.VideoWriter_fourcc = lambda *c: sum(ord(ch) << (8 * i) for i, ch in enumerate(c))
+    mod.VideoCapture = double.capture
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = mod
+    try:
+        yield mod
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def finish_when_done(managers, double, n: int, cancel, depth=None,
+                     timeout_s: float = 120.0):
+    """End the live session once the camera has served every frame and the
+    manager popped them all with its queue empty (or nothing moved for
+    10 s, or `timeout_s`; 64 frames take about 20 s): the camera source is
+    marked done, the flag the CLI's wait loop polls for a finite source (a
+    live one never ends, so its user would press Ctrl-C). Returns at once
+    when `cancel` (an Event) is set. The camera queue's depth is appended
+    to `depth` every 0.1 s. Returns the watcher thread."""
+    import threading
+
+    def watch():
+        t_end = time.time() + timeout_s
+        last, still = -1, time.time()
+        while time.time() < t_end:
+            if cancel.wait(0.1):
+                return
+            if not managers:
+                continue
+            mgr = managers[0]
+            if depth is not None:
+                depth.append(mgr.camera_queue.qsize())
+            if len(double.served) < n:
+                continue
+            done = mgr.get_status().frames_processed
+            if done != last:
+                last, still = done, time.time()
+            if mgr.camera_queue.empty() and (done >= n or time.time() - still > 10.0):
+                break
+        for src in (managers[0].sources if managers else []):
+            src.done = True
+
+    t = threading.Thread(target=watch, daemon=True)
+    t.start()
+    return t
+
+
+def run_zed_cli(device, left, right, gt, tmp, fps: float = 0.0):
+    """13a (fps 0: the frames as fast as the session takes them) or 13c
+    (paced at `fps`): the port's CLI on examples/zed_live_record.json as
+    shipped, in `tmp`, the camera a double behind a stand-in cv2."""
+    from lpslam_tpu_torch.eval.ate import ate_rmse
+    from lpslam_tpu_torch.pipeline import record
+    from lpslam_tpu_torch.pipeline.manager import SlamManager
+
+    n = len(left)
+    double = ZedDouble(left, right, fps)
+    managers, work_ms = [], []
+    orig_start, orig_work = SlamManager.start, SlamManager._work
+
+    def start(self):
+        managers.append(self)
+        for src in self.sources:
+            src.done = False
+        return orig_start(self)
+
+    def work(self, thread):
+        before, t0 = self._frames, time.perf_counter()
+        orig_work(self, thread)
+        if self._frames > before:
+            work_ms.append((time.perf_counter() - t0) * 1e3)
+
+    import threading
+
+    traj = os.path.join(tmp, "traj.txt")
+    cancel = threading.Event()
+    SlamManager.start, SlamManager._work = start, work
+    codec = _Timed(None)
+    codec.wrap(record, "_encode_jpeg", "encode")
+    reset_launches()
+    try:
+        with standin_cv2(double):
+            depth = []
+            watcher = finish_when_done(managers, double, n, cancel, depth)
+            try:
+                rc, line, wall = run_cli_in(tmp, ["--config", ZED_EXAMPLE, "--device",
+                                                  str(device), "--export-trajectory", traj])
+            finally:
+                cancel.set()
+                watcher.join(timeout=30.0)
+    finally:
+        SlamManager.start, SlamManager._work = orig_start, orig_work
+        codec.undo()
+    launches = read_launches()
+    enc = codec.summary().get("encode", {"n": 0, "median_ms": float("nan")})
+    stamped = read_trajectory(traj)
+    idx = np.array([double.frame_of(ts) for ts, _ in stamped], np.int64)
+    est = np.array([p for _, p in stamped], np.float64)
+    first = int(idx.min()) if len(idx) else n
+    files = [f for f in os.listdir(tmp) if f.endswith(".pb")]
+    stream = pb_counts(os.path.join(tmp, files[0])) if len(files) == 1 else {"counts": {}}
+    ate = ate_rmse(est, gt[idx])[0] if len(idx) > 3 else float("inf")
+    return {"cli": line, "rc": rc, "wall_s": wall, "pushed": len(double.served),
+            "processed": line["frames"], "dropped": len(double.served) - line["frames"],
+            "tracked": len(idx), "first_valid": first, "after": n - first,
+            "ate_m_sim3": ate, "gains": double.gains, "pb_files": len(files),
+            "messages": {k: v for k, v in stream["counts"].items()},
+            "worker_ms_median": float(np.median(work_ms)) if work_ms else float("nan"),
+            "worker_frames": len(work_ms), "queue_depth_max": max(depth, default=0),
+            "encode_ms_median": enc["median_ms"], "encoded": enc["n"],
+            "launches": launches}
+
+
+def zed_tracker_config():
+    """The tracker options of examples/zed_live_record.json (its type is
+    OpenVSLAMStereo: stereo mode)."""
+    with open(ZED_EXAMPLE) as f:
+        return dict(json.load(f)["trackers"][0]["configuration"], mode="stereo")
+
+
+def run_zed_rectified(device, left, right, gt, tmp):
+    """13b: the fisheye pair rectified through eval/run_dataset.py's
+    build_rectifier (cv2.fisheye.stereoRectify's port; the grids on the card
+    in the frame path) and VSLAMTracker in stereo mode with the ZED tracker
+    options and K_new, its vocabulary trained lazily on the card."""
+    import lpslam_tpu_torch.loop as loop_pkg
+    from lpslam_tpu_torch.eval.ate import ate_rmse
+    from lpslam_tpu_torch.eval.run_dataset import build_rectifier
+    from lpslam_tpu_torch.loop.detector import LoopCloser
+    from lpslam_tpu_torch.pipeline import CameraQueueEntry, VSLAMTracker
+
+    K, D = zed_camera()
+    h, w = ZED_SIZE
+    intr = {"model": "fisheye", "fx": K[0, 0], "fy": K[1, 1], "cx": K[0, 2], "cy": K[1, 2],
+            "dist": D, "width": w, "height": h, "baseline": ZED_BASELINE}
+    proc, cam, fxb = build_rectifier(intr, "stereo",
+                                     (np.eye(3), np.array([-ZED_BASELINE, 0.0, 0.0])),
+                                     device=device)
+    cfg = dict(zed_tracker_config(), focal_x_baseline=fxb,
+               vocab_file=os.path.join(tmp, "no_vocabulary.npz"))
+    tracker = VSLAMTracker(cam, cfg, device=device)
+    timed = _Timed(device)
+    timed.wrap(loop_pkg, "train_vocabulary", "train_vocabulary")
+    timed.wrap(type(proc), "process_image", "rectify")
+    timed.wrap(VSLAMTracker, "process_image", "frame")
+    verdicts, undo = record_closures(LoopCloser)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for i in range(len(left)):
+            entry = CameraQueueEntry(timestamp=i / ZED_FPS, image=left[i].astype(np.float32),
+                                     image_second=right[i].astype(np.float32))
+            tracker.process_image(proc.process_image(entry))
+        tracker.flush()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        timed.undo()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    eng = tracker.engine
+    fids, est = [], []
+    for fid, pose, _ in eng.trajectory:
+        if pose is not None:
+            fids.append(fid)
+            est.append(-np.asarray(pose.R).T @ np.asarray(pose.t))
+    lc = tracker.loop_closer
+    tracker.stop()
+    fids = np.asarray(fids, np.int64)
+    est = np.asarray(est, np.float64)
+    times = timed.summary()
+    return {"K_new": np.asarray(proc.K_new).tolist(), "focal_x_baseline": fxb,
+            "frames": len(left), "tracked": len(fids),
+            "first_valid": int(fids.min()) if len(fids) else len(left),
+            "ate_m": ate_rmse(est, gt[fids], with_scale=False)[0] if len(fids) > 3
+            else float("inf"),
+            "keyframes": eng.n_keyframes, "state": eng.status.name,
+            "vocab_words": None if lc is None else int(lc.vocab.words.shape[0]),
+            "bow_db": None if lc is None else int(lc.n),
+            "closures": [v[:2] + v[3:4] for v in verdicts if v[4]],
+            "train_s": times.get("train_vocabulary", {"max_ms": float("nan")})["max_ms"] / 1e3,
+            "rectify_ms_median": times["rectify"]["median_ms"],
+            "frame_ms_median": times["frame"]["median_ms"], "wall_s": wall,
+            "launches": launches}
+
+
+def zed_checks(a: dict, b: dict, c: dict) -> list:
+    """13a-c's checks against JAX_ZED_REF; the names of those that failed."""
+    n = ZED_FRAMES
+    checks = {
+        "13a: rc 0, no worker error": a["rc"] == 0 and a["cli"]["error"] == "",
+        f"13a: {n} frames processed, none dropped": a["processed"] == n == a["pushed"],
+        "13a: one .pb recording": a["pb_files"] == 1,
+        "13a/b: the three kernels launched": all(
+            x > 0 for r in (a, b) for x in r["launches"].values()),
+        "13b: K_new and fx*b those of cv2.fisheye.stereoRectify": (
+            abs(b["K_new"][0][0] - ZED_RECT_F) < 1e-4
+            and abs(b["focal_x_baseline"] - ZED_RECT_FXB) < 1e-6),
+        "13b: no closure accepted": b["closures"] == [],
+        "13b: >= 0.9 tracked": b["tracked"] >= 0.9 * n,
+        "13c: rc 0, no worker error": c["rc"] == 0 and c["cli"]["error"] == "",
+    }
+    if JAX_ZED_REF is not None:
+        ra, rb = JAX_ZED_REF["cli"], JAX_ZED_REF["rectified"]
+        if ra["tracked"] >= 0.9 * ra["after"]:
+            checks["13a: >= 0.9 tracked after init (JAX does)"] = a["tracked"] >= 0.9 * a["after"]
+        else:
+            checks[f"13a: tracked >= JAX's {ra['tracked']} - 6"] = a["tracked"] >= ra["tracked"] - 6
+        bound = lambda ref: max(1.5 * ref, ref + 0.02)  # noqa: E731
+        checks.update({
+            "13a: the gains JAX's source set": a["gains"] == ra["gains"],
+            "13a: the stream's image and result counts JAX's": all(
+                a["messages"].get(k, 0) == ra["messages"].get(k, 0)
+                for k in ("camera_image", "result")),
+            f"13a: ATE <= {bound(ra['ate_m_sim3']):.4f} m": a["ate_m_sim3"] <= bound(
+                ra["ate_m_sim3"]),
+            f"13b: {rb['vocab_words']} words as JAX's": b["vocab_words"] == rb["vocab_words"],
+            f"13b: ATE <= {bound(rb['ate_m']):.4f} m": b["ate_m"] <= bound(rb["ate_m"]),
+        })
+    return [k for k, ok in checks.items() if not ok]
+
+
+# phase 14: vocabulary training at the shipped scale, on phase 7's room:
+# lap 1's descriptors train a 32^3 tree and the lazy flat vocabulary; each
+# and the shipped one are scored as tools/vocab_quality.py scores them.
+# tools/jax_loop_reference.py --vocab-only does the same in the JAX package
+# (JAX_VOCAB_REF).
+VOCAB_RADIUS_M = 0.6
+# tools/jax_loop_reference.py --vocab-only on the CPU (553,506 lap-1
+# descriptors; train_s_cpu is the JAX package's training time on the CPU)
+JAX_VOCAB_REF = {
+    "tree": {"words": 32011, "train_s_cpu": 145.0203344369993, "separation": 11.95874303543612,
+             "same_place_mean": 0.23853911000329095, "diff_place_mean": 0.019946837999315847,
+             "top1_retrieval_acc": 1.0, "queries": 37},
+    "lazy_flat": {"words": 512, "separation": 1.1844026734073918, "top1_retrieval_acc": 1.0},
+    "shipped": {"words": 31707, "separation": 3.159174160544393, "top1_retrieval_acc": 1.0},
+}
+
+
+def vocab_metrics(vecs, pos, T: int, radius: float = VOCAB_RADIUS_M) -> dict:
+    """tools/vocab_quality.py's scores of per-frame BoW vectors (F, W):
+    same-place (i, i + T) and different-place (i, i + T/2, every 7th)
+    similarity and their separation; top-1 retrieval of every 5th frame
+    after the first lap against the first lap, correct within `radius`."""
+    vecs = np.asarray(vecs, np.float32)
+    nf = len(vecs)
+    same = np.array([vecs[a] @ vecs[a + T] for a in range(0, nf - T)], np.float64)
+    diff = np.array([vecs[a] @ vecs[a + T // 2] for a in range(0, nf - T // 2, 7)], np.float64)
+    hits, queries = 0, 0
+    for q in range(T, nf, 5):
+        cand = int(np.argmax(vecs[:T] @ vecs[q]))
+        queries += 1
+        hits += float(np.linalg.norm(pos[cand] - pos[q])) <= radius
+    return {"same_place_mean": float(same.mean()), "same_place_median": float(np.median(same)),
+            "diff_place_mean": float(diff.mean()), "diff_place_median": float(np.median(diff)),
+            "separation": float(same.mean() / max(diff.mean(), 1e-9)),
+            "top1_retrieval_acc": hits / max(queries, 1), "queries": queries}
+
+
+def room_lap(n_frames: int) -> int:
+    """Frames per orbit of the room at run_dataset's motion rate."""
+    return int(round((n_frames - 1) / (1.08 * n_frames / 600.0)))
+
+
+@contextlib.contextmanager
+def drawn(module, name: str, into: list):
+    """module.<name> (an initial-draw function) appends each draw to `into`."""
+    fn = getattr(module, name)
+
+    def draw(*a):
+        into.append(fn(*a))
+        return into[-1]
+
+    setattr(module, name, draw)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def replayed(module, name: str, draws: list):
+    """module.<name> returns `draws` in turn, on the CPU (its own draw once
+    they run out); yields a function giving how many were not used (< 0:
+    more were asked for)."""
+    fn, it = getattr(module, name), iter(draws)
+    left = [len(draws)]
+
+    def draw(*a):
+        left[0] -= 1
+        d = next(it, None)
+        return fn(*a) if d is None else d.cpu()
+
+    setattr(module, name, draw)
+    try:
+        yield lambda: left[0]
+    finally:
+        setattr(module, name, fn)
+
+
+def run_vocab_phase(device, raw, gt, grid):
+    """Phase 14: ORB on the card over the room's undistorted frames, the
+    tree and the lazy flat vocabulary trained on lap 1, and the scores."""
+    from lpslam_tpu_torch.kernels.orb import OrbParams, extract_orb
+    from lpslam_tpu_torch.kernels.remap import remap_bilinear
+    from lpslam_tpu_torch.loop import vocab as tvocab
+    from lpslam_tpu_torch.loop.vocab import (bow_vector, load_vocabulary, train_vocabulary,
+                                             train_vocabulary_tree)
+    from lpslam_tpu_torch.pipeline.trackers import SHIPPED_VOCAB
+
+    params = OrbParams(num_keypoints=KEYPOINTS, num_levels=LEVELS)
+    grid_d = torch.from_numpy(grid).to(device)
+    reset_launches()
+    desc, valid = [], []
+    for s in range(0, len(raw), CHUNK):
+        imgs = torch.from_numpy(raw[s:s + CHUNK]).to(device, torch.float32)
+        f = extract_orb(remap_bilinear(imgs, grid_d), params)
+        desc.append(f.desc)
+        valid.append(f.valid)
+    desc, valid = torch.cat(desc), torch.cat(valid)
+    launches = read_launches()
+    T = room_lap(len(raw))
+    lap_desc, lap_valid = desc[:T].reshape(-1, 8), valid[:T].reshape(-1)
+    frame_of = torch.arange(desc[:T].shape[0], device=device).repeat_interleave(desc.shape[1])
+    train, docs = lap_desc[lap_valid], frame_of[lap_valid].cpu().numpy()
+    tree_kw = dict(branching=32, depth=3, doc_ids=docs)
+    draws = {"tree": [], "flat": []}
+    with drawn(tvocab, "_node_draw", draws["tree"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = train_vocabulary_tree(train, **tree_kw)
+        torch.cuda.synchronize()
+        t_tree = time.perf_counter() - t0
+    with drawn(tvocab, "_kmajority_draw", draws["flat"]):
+        t0 = time.perf_counter()
+        flat = train_vocabulary(train[:4096], n_words=512)
+        torch.cuda.synchronize()
+        t_flat = time.perf_counter() - t0
+    # the same trainings on the CPU from the card's initial draws: the cores
+    # (index_add_ atomics on the card) must give the same words bit for bit
+    t0 = time.perf_counter()
+    with replayed(tvocab, "_node_draw", draws["tree"]) as left_tree:
+        tree_cpu = train_vocabulary_tree(train.cpu(), **tree_kw)
+    with replayed(tvocab, "_kmajority_draw", draws["flat"]) as left_flat:
+        flat_cpu = train_vocabulary(train[:4096].cpu(), n_words=512)
+    idf_ulps = int((flat.idf.cpu().view(torch.int32)
+                    - flat_cpu.idf.view(torch.int32)).abs().max())
+    exact = {"tree_words_equal": torch.equal(tree.words.cpu(), tree_cpu.words),
+             "tree_idf_equal": torch.equal(tree.idf.cpu(), tree_cpu.idf),
+             "flat_words_equal": torch.equal(flat.words.cpu(), flat_cpu.words),
+             "flat_idf_max_ulps": idf_ulps, "draws": len(draws["tree"]),
+             "draws_left": left_tree() + left_flat(),
+             "cpu_s": time.perf_counter() - t0}
+    out = {"frames": len(raw), "lap": T, "train_descriptors": int(train.shape[0]),
+           "launches": launches, "cpu_replay": exact, "vocabularies": {}}
+    for name, vocab, secs in (("tree", tree, t_tree), ("lazy_flat", flat, t_flat),
+                              ("shipped", load_vocabulary(SHIPPED_VOCAB, device), None)):
+        vecs = torch.stack([bow_vector(vocab, d, v) for d, v in zip(desc, valid)])
+        out["vocabularies"][name] = {"words": int(vocab.words.shape[0]), "train_s": secs,
+                                     **vocab_metrics(vecs.cpu().numpy(), gt, T)}
+    checks = {"the three kernels launched": all(n > 0 for n in launches.values()),
+              "the tree's words on the card those of the CPU from the same draws":
+                  exact["tree_words_equal"] and exact["tree_idf_equal"],
+              "the flat words on the card those of the CPU from the same draws, idf "
+              "within 1 ulp": exact["flat_words_equal"] and idf_ulps <= 1,
+              "every card draw replayed on the CPU": exact["draws_left"] == 0}
+    if JAX_VOCAB_REF is not None:
+        ours, ref = out["vocabularies"]["tree"], JAX_VOCAB_REF["tree"]
+        checks[f"tree words {ours['words']} within 10% of JAX's {ref['words']}"] = (
+            abs(ours["words"] - ref["words"]) <= 0.1 * ref["words"])
+        checks[f"tree top-1 >= JAX's {ref['top1_retrieval_acc']:.3f} - 0.10"] = (
+            ours["top1_retrieval_acc"] >= ref["top1_retrieval_acc"] - 0.10)
+        for name in ("tree", "lazy_flat"):
+            sep, ref_sep = out["vocabularies"][name]["separation"], JAX_VOCAB_REF[name]["separation"]
+            checks[f"{name} separation {sep:.3f} >= 0.9 x JAX's {ref_sep:.3f}"] = (
+                sep >= 0.9 * ref_sep)
+    out["checks_failed"] = [k for k, ok in checks.items() if not ok]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1538,6 +2085,74 @@ def main() -> int:
     print(f"phase 12c: {res['codec']['cases']} codec cases, digests "
           f"{'equal' if not res['codec']['wrong'] else 'WRONG ' + str(res['codec']['wrong'])}; "
           f"phase 12 {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    zl, zr, zgt = render_zed()
+    print(f"rendered the {len(zl)}-frame HD720 fisheye stereo session in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print("phase 13a/13c: the camera is a double behind a stand-in cv2 module (its "
+          "VideoCapture serves the rendered frames as side-by-side YUYV, then fails)")
+    zed = {}
+    for key, run in (("cli", lambda tmp: run_zed_cli(device, zl, zr, zgt, tmp)),
+                     ("rectified", lambda tmp: run_zed_rectified(device, zl, zr, zgt, tmp)),
+                     ("paced", lambda tmp: run_zed_cli(device, zl, zr, zgt, tmp, fps=ZED_FPS))):
+        with tempfile.TemporaryDirectory() as tmp:
+            zed[key] = run(tmp)
+        for name, n in zed[key]["launches"].items():
+            records[name]["launches"] += n
+        print(f"zed {key}: " + json.dumps(zed[key]))
+    a, b, c = zed["cli"], zed["rectified"], zed["paced"]
+    failed += [f"phase 13: {x}" for x in zed_checks(a, b, c)]
+    ref = JAX_ZED_REF or {"cli": {}, "rectified": {}}
+    print(f"phase 13a: CLI on examples/zed_live_record.json, {a['processed']} of "
+          f"{a['pushed']} frames processed, {a['tracked']} tracked of {a['after']} after init "
+          f"(JAX CPU {ref['cli'].get('tracked')}), ATE {a['ate_m_sim3']:.4f} m Sim3 (JAX CPU "
+          f"{ref['cli'].get('ate_m_sim3')}), gains {a['gains']}, stream {a['messages']}, "
+          f"slam worker median {a['worker_ms_median']:.1f} ms per frame (of it JPEG "
+          f"encoding, median {a['encode_ms_median']:.1f} ms per 1280x720 eye over "
+          f"{a['encoded']}), wall "
+          f"{a['wall_s']:.1f} s; launches {a['launches']}; on {card}")
+    print(f"phase 13b: fisheye pair rectified on the card (K_new f {b['K_new'][0][0]:.8f}, "
+          f"fx*b {b['focal_x_baseline']:.8f}), {b['tracked']}/{b['frames']} tracked, ATE "
+          f"{b['ate_m']:.4f} m (JAX CPU {ref['rectified'].get('ate_m')}), vocabulary "
+          f"{b['vocab_words']} words trained in {b['train_s']:.3f} s on the frame path, BoW "
+          f"db {b['bow_db']} keyframes of {b['keyframes']}, closures {b['closures']}; "
+          f"rectify median {b['rectify_ms_median']:.2f} ms per pair, frame median "
+          f"{b['frame_ms_median']:.1f} ms, wall {b['wall_s']:.1f} s; launches "
+          f"{b['launches']}; on {card}")
+    print(f"phase 13c: the CLI with the camera paced at {ZED_FPS:.0f} frames/s: "
+          f"{c['pushed']} pushed, {c['processed']} processed, {c['dropped']} dropped, slam "
+          f"worker median {c['worker_ms_median']:.1f} ms per frame over "
+          f"{c['worker_frames']} frames (one frame every {1e3 / ZED_FPS:.1f} ms; encode "
+          f"median {c['encode_ms_median']:.1f} ms per eye), camera "
+          f"queue up to {c['queue_depth_max']} of 64 frames, {c['tracked']} tracked, wall "
+          f"{c['wall_s']:.1f} s; "
+          f"on {card}")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    res = run_vocab_phase(device, raw, gt, grid)
+    for name, n in res["launches"].items():
+        records[name]["launches"] += n
+    print("vocab: " + json.dumps(res))
+    failed += [f"phase 14: {x}" for x in res["checks_failed"]]
+    v = res["vocabularies"]
+    vref = (JAX_VOCAB_REF or {}).get("tree", {})
+    print(f"phase 14: {res['train_descriptors']} lap-1 descriptors (lap {res['lap']} frames); "
+          f"tree {v['tree']['words']} words in {v['tree']['train_s']:.2f} s (JAX CPU "
+          f"{vref.get('words')} words), top-1 {v['tree']['top1_retrieval_acc']:.3f} (JAX CPU "
+          f"{vref.get('top1_retrieval_acc')}), separation {v['tree']['separation']:.3f} (JAX "
+          f"CPU {vref.get('separation')}); "
+          f"lazy flat {v['lazy_flat']['words']} words in {v['lazy_flat']['train_s']:.3f} s, "
+          f"top-1 {v['lazy_flat']['top1_retrieval_acc']:.3f}, separation "
+          f"{v['lazy_flat']['separation']:.3f} (JAX CPU "
+          f"{(JAX_VOCAB_REF or {}).get('lazy_flat', {}).get('separation')}); shipped top-1 "
+          f"{v['shipped']['top1_retrieval_acc']:.3f}; the CPU from the card's "
+          f"{res['cpu_replay']['draws']} + 1 draws: tree words "
+          f"{'equal' if res['cpu_replay']['tree_words_equal'] else 'DIFFERENT'}, flat words "
+          f"{'equal' if res['cpu_replay']['flat_words_equal'] else 'DIFFERENT'} (idf max "
+          f"{res['cpu_replay']['flat_idf_max_ulps']} ulp), {res['cpu_replay']['cpu_s']:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s, on {card}")
     if failed:
         raise AssertionError(f"checks failed: {failed}")
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")

@@ -31,7 +31,10 @@ from .camera import (
     unproject_pinhole,
     distort_radtan,
     undistort_points_radtan,
+    distort_fisheye,
+    undistort_points_fisheye,
     undistort_map_radtan,
+    undistort_map_fisheye,
     rectify_maps_stereo,
 )
 from .frames import lpslam_to_optical, optical_to_lpslam

@@ -1,4 +1,4 @@
-from .vocab import (Vocabulary, assign_words, bow_vector, bow_similarity,
+from .vocab import (Vocabulary, train_vocabulary, assign_words, bow_vector, bow_similarity,
                     save_vocabulary, load_vocabulary)
 from .detector import LoopCloser, LoopConfig, LoopResult, LoopVerdict, correct_loop
 from .sim3_solve import umeyama_sim3, robust_sim3_from_matches

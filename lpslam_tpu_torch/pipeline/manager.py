@@ -54,6 +54,7 @@ from .record import RecordEngine, ReplayEngine, _encode_jpeg
 from .rectify import RectifyProcessor
 from .sources import (
     FileImageSource,
+    bgr_to_gray,
     ImageSourceBase,
     OpenCVCameraSource,
     ReplaySource,
@@ -111,27 +112,6 @@ PROCESSOR_REGISTRY = {
     "CameraCalibration": CameraCalibrationProcessor,
     "Rectify": RectifyProcessor,
 }
-
-# BGR(A) -> gray weights of OpenCV's cvtColor on 8-bit data:
-# (R*9798 + G*19235 + B*3735 + 2^14) >> 15
-_GRAY_W15 = (3735, 19235, 9798)
-# and on float data
-_GRAY_F = (np.float32(0.114), np.float32(0.587), np.float32(0.299))
-
-
-def bgr_to_gray(buf: np.ndarray) -> np.ndarray:
-    """(H, W, 3|4) B, G, R(, A) -> (H, W) gray of the same dtype, as
-    ``cv2.cvtColor(buf, COLOR_BGR(A)2GRAY)``: bit-equal on uint8, float32
-    within 1e-4 (OpenCV's vector code orders the float sum its own way)."""
-    b, g, r = buf[..., 0], buf[..., 1], buf[..., 2]
-    if buf.dtype == np.uint8:
-        wb, wg, wr = _GRAY_W15
-        v = (b.astype(np.int32) * wb + g.astype(np.int32) * wg
-             + r.astype(np.int32) * wr + (1 << 14)) >> 15
-        return v.astype(np.uint8)
-    wb, wg, wr = _GRAY_F
-    return (b * wb + g * wg + r * wr).astype(buf.dtype)
-
 
 class SlamManager:
     """Pipeline owner. Register stages by name or as instances, then

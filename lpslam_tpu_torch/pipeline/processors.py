@@ -5,8 +5,11 @@ lpslam_tpu/pipeline/processors.py).
   injection for tracking loss and relocalization);
 - AdjustIntensityProcessor stretches each eye's contrast between two
   percentiles (stretchlim / imadjust);
-- CameraCalibrationProcessor (chessboard detection and intrinsics fit, which
-  the JAX package does with OpenCV) is refused: ROADMAP Queue 1 item 22.
+- CameraCalibrationProcessor collects chessboard views (border rejection,
+  novelty selection) and fits fisheye or pinhole intrinsics once it has
+  `min_views`. The chessboard detector, the corner refinement and the fits
+  are OpenCV's, imported inside ``process_image`` / ``_fit`` only: a
+  calibration session needs OpenCV, the SLAM path does not.
 """
 from __future__ import annotations
 
@@ -85,8 +88,8 @@ class AdjustIntensityProcessor(ProcessorBase):
 
 
 class CameraCalibrationProcessor(ProcessorBase):
-    """Refused: the JAX package fits intrinsics with OpenCV's chessboard
-    detector and calibrateCamera, which the port does not have."""
+    """Collects chessboard views and fits intrinsics (fisheye or pinhole);
+    `result` holds the fit: model, K, dist and the RMS reprojection error."""
 
     schema = (
         ConfigOptions()
@@ -101,6 +104,62 @@ class CameraCalibrationProcessor(ProcessorBase):
 
     def __init__(self, config=None):
         super().__init__(config)
-        raise NotImplementedError(
-            "CameraCalibrationProcessor is not ported to lpslam_tpu_torch yet "
-            "(ROADMAP Queue 1 item 22)")
+        self._img_points: list = []
+        self._image_size = None
+        self.result: Optional[dict] = None
+
+    def process_image(self, entry: CameraQueueEntry) -> CameraQueueEntry:
+        import cv2
+
+        img8 = np.clip(entry.image, 0, 255).astype(np.uint8)
+        self._image_size = img8.shape[::-1]
+        pattern = (self.cfg["board_cols"], self.cfg["board_rows"])
+        found, corners = cv2.findChessboardCorners(
+            img8, pattern, cv2.CALIB_CB_ADAPTIVE_THRESH | cv2.CALIB_CB_FAST_CHECK)
+        if not found:
+            return entry
+        corners = cv2.cornerSubPix(
+            img8, corners, (5, 5), (-1, -1),
+            (cv2.TERM_CRITERIA_EPS + cv2.TERM_CRITERIA_MAX_ITER, 30, 0.01))
+        if self._accept(corners.reshape(-1, 2)):
+            self._img_points.append(corners)
+            if len(self._img_points) >= self.cfg["min_views"]:
+                self._fit()
+        return entry
+
+    def _accept(self, pts: np.ndarray) -> bool:
+        """Every corner inside the border margin, and the mean corner motion
+        against each accepted view at least `novelty_px`."""
+        m = self.cfg["border_margin_px"]
+        w, h = self._image_size
+        if (pts[:, 0].min() < m or pts[:, 1].min() < m
+                or pts[:, 0].max() > w - m or pts[:, 1].max() > h - m):
+            return False
+        return all(np.abs(prev.reshape(-1, 2) - pts).mean() >= self.cfg["novelty_px"]
+                   for prev in self._img_points)
+
+    def _fit(self):
+        import cv2
+
+        pattern = (self.cfg["board_cols"], self.cfg["board_rows"])
+        objp = np.zeros((pattern[0] * pattern[1], 1, 3), np.float64)
+        grid = np.mgrid[0:pattern[0], 0:pattern[1]].T.reshape(-1, 2)
+        objp[:, 0, :2] = grid * self.cfg["square_size"]
+        obj_points = [objp] * len(self._img_points)
+        if self.cfg["model"] == "fisheye":
+            # OpenCV 4 names the flags in cv2.fisheye, OpenCV 5 in cv2 (other
+            # values); OpenCV 5's fisheye.calibrate takes (1, N, 3) / (1, N, 2)
+            # point sets only, which OpenCV 4 takes as well
+            flags = sum(getattr(cv2.fisheye, n, None) or getattr(cv2, n)
+                        for n in ("CALIB_RECOMPUTE_EXTRINSIC", "CALIB_FIX_SKEW"))
+            rms, K, D, _, _ = cv2.fisheye.calibrate(
+                [o.reshape(1, -1, 3) for o in obj_points],
+                [c.reshape(1, -1, 2).astype(np.float64) for c in self._img_points],
+                self._image_size, np.eye(3), np.zeros((4, 1)), flags=flags)
+            self.result = {"model": "fisheye", "K": K, "dist": D.ravel(), "rms": rms}
+        else:
+            rms, K, D, _, _ = cv2.calibrateCamera(
+                [o.astype(np.float32) for o in obj_points],
+                [c.astype(np.float32) for c in self._img_points],
+                self._image_size, None, None)
+            self.result = {"model": "perspective", "K": K, "dist": D.ravel(), "rms": rms}

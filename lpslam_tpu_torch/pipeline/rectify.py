@@ -1,14 +1,19 @@
 """Stereo rectification and mono undistortion processor (port of
 lpslam_tpu/pipeline/rectify.py).
 
-The remap grids are built once, in numpy, from the camera registry:
-``geometry/camera.py::undistort_map_radtan`` for one camera,
-``rectify_maps_stereo`` for a radtan pair (where the JAX package calls
-``cv2.initUndistortRectifyMap`` and ``cv2.stereoRectify``). They stay on
-the processor's device; each frame is uploaded, remapped there by
-``kernels/remap.py::remap_bilinear`` and handed back as numpy. An RGB-D depth map
-goes through the mono grid, so it stays registered with the image. Fisheye
-and omni cameras are refused (ROADMAP Queue 1 item 23).
+The remap grids are built once, in numpy, from the camera registry (where
+the JAX package calls OpenCV):
+- an omni (Mei) camera: ``omni_undistort_maps`` to a pinhole view, per eye;
+  the right eye takes the left's K_new and its own rotation;
+- one camera (no right eye, or no rotation): ``undistort_map_fisheye`` or
+  ``undistort_map_radtan`` (5 or 8 coefficients) with K kept;
+- a pair: ``rectify_maps_stereo`` (fisheye, or radtan for every other
+  model).
+They stay on the processor's device; each frame is uploaded, remapped there
+by ``kernels/remap.py::remap_bilinear`` and handed back as numpy. With one
+grid only the left eye is remapped, as in the JAX package, even when the
+entry carries a right eye. An RGB-D depth map goes through the left grid,
+so it stays registered with the image.
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..geometry.camera import rectify_maps_stereo, undistort_map_radtan
+from ..geometry.camera import (omni_undistort_maps, rectify_maps_stereo,
+                               undistort_map_fisheye, undistort_map_radtan)
 from ..kernels.remap import remap_bilinear
 from .config import CameraConfig, ConfigOptions
 from .processors import ProcessorBase
@@ -44,26 +50,34 @@ class RectifyProcessor(ProcessorBase):
             self.configure(camera, camera_right)
 
     def configure(self, cam: CameraConfig, cam_right: Optional[CameraConfig] = None):
-        if cam.model in ("fisheye", "omni"):
-            raise NotImplementedError(
-                f"{cam.model} rectification is not ported to lpslam_tpu_torch yet "
-                "(ROADMAP Queue 1 item 23)")
-        if cam.distortion.size == 8:
-            raise NotImplementedError(
-                "the rational (8-coefficient) distortion model is not ported to "
-                "lpslam_tpu_torch yet (ROADMAP Queue 1 item 23)")
         to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
+        size = (cam.height, cam.width)
+        if cam.model == "omni":
+            m_l, K_new = omni_undistort_maps(_K(cam), cam.distortion.astype(np.float64), size,
+                                             R=cam.rotation)
+            m_r = None
+            if cam_right is not None:
+                m_r, _ = omni_undistort_maps(_K(cam_right),
+                                             cam_right.distortion.astype(np.float64), size,
+                                             R=cam_right.rotation, K_new=K_new)
+            self._maps = (to_dev(m_l), None if m_r is None else to_dev(m_r))
+            self.K_new = K_new
+            return
         if cam_right is None or cam.rotation is None:
             # mono undistortion: identity rotation, the same K
             K = _K(cam)
-            grid = undistort_map_radtan(K, cam.distortion, (cam.height, cam.width))
+            if cam.model == "fisheye":
+                grid = undistort_map_fisheye(K, cam.distortion, size)
+            else:
+                grid = undistort_map_radtan(K, cam.distortion, size)
             self._maps = (to_dev(grid), None)
             self.K_new = K.astype(np.float32)
             return
         res = rectify_maps_stereo(
             _K(cam), cam.distortion.astype(np.float64),
             _K(cam_right), cam_right.distortion.astype(np.float64),
-            cam.rotation, cam.translation, (cam.height, cam.width),
+            cam.rotation, cam.translation, size,
+            model="fisheye" if cam.model == "fisheye" else "perspective",
         )
         self._maps = (to_dev(res["map_l"]), to_dev(res["map_r"]))
         self.K_new = res["K_new"]

@@ -19,9 +19,12 @@ that landed meanwhile.
 
 The vocabulary is the JAX package's shipped asset, read as data
 (``lpslam_tpu/assets/orb_vocab.npz``) unless ``vocab_file`` names another.
+Where that file does not exist, a flat vocabulary is trained on the map's
+first 4096 valid keyframe descriptors once there are 4 keyframes (on the
+frame path, as the JAX package does).
 
 Refused with NotImplementedError: descriptor ablations (``brief_mode``
-other than "polar") and vocabulary self-training. Mask images are read by
+other than "polar"). Mask images are read by
 io/png.py and resized nearest-neighbour as OpenCV's INTER_NEAREST does.
 """
 from __future__ import annotations
@@ -558,14 +561,22 @@ class VSLAMTracker(TrackerBase):
         if nk <= self._loop_pending_kfs:
             return self._loop_poll()
         if self.loop_closer is None:
-            # the JAX package trains a vocabulary on the map here
+            # no vocabulary file: train one on the map's own descriptors
             if nk < 4:
                 self._loop_pending_kfs = nk
                 return False
-            raise _not_ported(
-                f"vocabulary training (no vocabulary at '{self.cfg['vocab_file']}'; "
-                "ROADMAP Queue 1 item 15)"
-            )
+            from ..loop import LoopCloser, train_vocabulary
+
+            m = self.engine.map
+            desc = m.kf_desc[:nk].reshape(-1, 8)
+            valid = m.kf_kp_valid[:nk].reshape(-1)
+            train = desc[valid][:4096]
+            vocab = train_vocabulary(train, n_words=min(512, max(64, len(train) // 8)))
+            self.loop_closer = LoopCloser(vocab, self.cfg["max_keyframes"], cfg=self._loop_cfg())
+            for k in range(nk):
+                self.loop_closer.add_keyframe(m, k)
+            self._loop_pending_kfs = nk
+            return False
         closed = self._loop_poll()
         for k in range(self._loop_pending_kfs, nk):
             if self.cfg["loop_async"]:

@@ -27,9 +27,12 @@ one; run them there with
   and 0.60-0.86% of the bits differing; ``use_pallas=True`` gave equal
   level-0 keypoints on all ten, angle differences up to 2.9e-5 rad and
   0.25-0.36% of the bits differing (at most 7 on one keypoint).
+- The HD720 pyramid of phase 13's stereo pair (720x1280, 600x1067,
+  500x889 at B = 2): both kernels bit-equal to their plain versions.
 - The pipeline on the card: RectifyProcessor's undistorted and rectified
-  frames equal its CPU run within 1e-4 gray levels (the grids are the same
-  numpy arrays; the bilinear blend may contract differently); SlamManager
+  frames (a radtan pair, and the ZED's fisheye pair at 1280x720) equal its
+  CPU run within 1e-4 gray levels (the grids are the same numpy arrays; the
+  bilinear blend may contract differently); SlamManager
   with the synthetic source processes every frame with no worker error and
   launches the kernels; so does a session recorded with RecordEngine and
   replayed through the Replay source.
@@ -82,7 +85,8 @@ def test_patch_kernel_matches_plain(cuda_device):
 
 @pytest.mark.parametrize("frame_ceiling", [False, True])
 @pytest.mark.parametrize("b,h,w", [(2, 480, 640), (16, 400, 533), (16, 333, 444),
-                                   (3, 79, 97), (1, 37, 45), (2, 8, 8), (1, 10, 33)])
+                                   (3, 79, 97), (1, 37, 45), (2, 8, 8), (1, 10, 33),
+                                   (2, 720, 1280), (2, 600, 1067), (2, 500, 889)])
 def test_fast_nms_kernel_matches_plain(cuda_device, b, h, w, frame_ceiling):
     rng = np.random.default_rng(h * w)
     x = (rng.random((b, h, w)) * 255).astype(np.float32)
@@ -99,6 +103,22 @@ def test_fast_nms_kernel_matches_plain(cuda_device, b, h, w, frame_ceiling):
         assert torch.equal(got, fast_nms.fast_nms_score_reference(img, 20.0, 7.0, frame_ceiling))
         assert torch.equal(fast_nms.fast_lo_max_cuda(img, 7.0),
                            fast_nms.fast_lo_max_reference(img, 7.0))
+
+
+@pytest.mark.parametrize("h,w,n", [(720, 1280, 474), (600, 1067, 396), (500, 889, 330)])
+def test_patch_kernel_at_hd720_matches_plain(cuda_device, h, w, n):
+    """The HD720 pyramid of a stereo pair (B = 2) with the level's keypoint
+    budget, keypoints on the borders too."""
+    rng = np.random.default_rng(h)
+    img = torch.from_numpy((rng.random((2, h, w)) * 255).astype(np.float32)).to(cuda_device)
+    xy = rng.uniform(0, [w, h], (2, n, 2)).astype(np.float32)
+    xy[:, :4] = [[0, 0], [w - 1, h - 1], [w - 16.5, 15.5], [-2, h + 3]]
+    xy_d = torch.from_numpy(xy).to(cuda_device)
+    before = patch.LAUNCHES
+    got = patch.extract_patches(img, xy_d)
+    torch.cuda.synchronize()
+    assert patch.LAUNCHES == before + 1
+    assert torch.equal(got, patch.extract_patches_reference(img, xy_d))
 
 
 def test_kernel_wrappers_refuse_misuse(cuda_device):
@@ -238,6 +258,32 @@ def test_rectify_processor_on_card_matches_cpu(cuda_device):
         for a, b in zip(*out):
             if a is not None:
                 np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
+
+
+def test_fisheye_stereo_rectify_on_card_matches_cpu(cuda_device):
+    """The ZED rig of examples/zed_live_record.json on both eyes (fisheye,
+    12 cm), rectified on the card and on the CPU: the same numpy grids, so
+    frames within 1e-4 gray levels as the radtan pair above."""
+    from lpslam_tpu_torch.pipeline.config import CameraConfig
+    from lpslam_tpu_torch.pipeline.queues import CameraQueueEntry
+    from lpslam_tpu_torch.pipeline.rectify import RectifyProcessor
+
+    kw = dict(model="fisheye", fx=700.0, fy=700.0, cx=640.0, cy=360.0,
+              distortion=np.array([-0.17, 0.023, 0.0, 0.0], np.float32),
+              width=1280, height=720)
+    left = CameraConfig(number=0, rotation=np.eye(3), translation=np.array([-0.12, 0.0, 0.0]),
+                        **kw)
+    right = CameraConfig(number=1, **kw)
+    imgs = [make_texture(720, 1280, seed=s) for s in (3, 4)]
+    out = []
+    for dev in ("cpu", cuda_device):
+        proc = RectifyProcessor(None, left, right, device=dev)
+        assert abs(proc.K_new[0, 0] - 600.57326876) < 1e-4
+        assert abs(proc.focal_x_baseline - 72.06879225) < 1e-6
+        e = proc.process_image(CameraQueueEntry(0.0, imgs[0].copy(), imgs[1].copy()))
+        out.append((e.image, e.image_second))
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
 
 
 def test_manager_on_card_processes_frames(cuda_device):

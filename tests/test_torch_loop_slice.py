@@ -326,6 +326,10 @@ def test_ported_option_matches_jax(name, tmp_path):
 
 
 def test_schema_and_unported_calls():
+    from lpslam_tpu.pipeline import processors as jproc
+    from lpslam_tpu.pipeline import sources as jsrc
+    from lpslam_tpu.pipeline.rectify import RectifyProcessor as JRect
+    from lpslam_tpu.pipeline.config import CameraConfig as JCC
     from lpslam_tpu_torch.pipeline.processors import CameraCalibrationProcessor
     from lpslam_tpu_torch.pipeline.rectify import RectifyProcessor
     from lpslam_tpu_torch.pipeline.config import CameraConfig
@@ -343,35 +347,81 @@ def test_schema_and_unported_calls():
     tr = VSLAMTracker(cam, {"_comment": "ignored", "keypoints": 64.0}, device="cpu")
     assert tr.cfg["keypoints"] == 64
     assert tr.status()["state"] == "NOT_INITIALIZED"
-    # what stays refused: the live sources, calibration, fisheye and omni
-    # rectification (replay is ported: a missing file raises as in JAX)
-    for src, conf in ((OpenCVCameraSource, {}), (ZedOpenCaptureSource, {}),
-                      (ZedSdkSource, {})):
-        with pytest.raises(NotImplementedError, match="item 21"):
-            src(conf)
+    # the live sources and the calibration processor build as in JAX (their
+    # capture API is imported when they start); without pyzed the SDK source
+    # raises as JAX's does; a missing replay file raises as in JAX
+    for ours, ref, conf in ((OpenCVCameraSource, jsrc.OpenCVCameraSource, {"device": 2}),
+                            (ZedOpenCaptureSource, jsrc.ZedOpenCaptureSource, {"height": 720}),
+                            (CameraCalibrationProcessor, jproc.CameraCalibrationProcessor,
+                             {"min_views": 3})):
+        assert ours(conf).cfg == ref(conf).cfg
+    for cls in (ZedSdkSource, jsrc.ZedSdkSource):
+        with pytest.raises(RuntimeError, match="pyzed"):
+            cls({})
     with pytest.raises(FileNotFoundError):
         ReplaySource({"file": "/nonexistent/x.pb"})
     with pytest.raises(ConfigError):
         ReplaySource({})                           # the schema still parses first
-    with pytest.raises(NotImplementedError, match="item 22"):
-        CameraCalibrationProcessor({})
-    for model, dist in (("fisheye", [0.1, 0.0, 0.0, 0.0]), ("omni", [])):
-        cc = CameraConfig(number=0, model=model, fx=100.0, fy=100.0, cx=80.0, cy=60.0,
-                          distortion=np.asarray(dist, np.float32), width=160, height=120)
-        with pytest.raises(NotImplementedError, match="item 23"):
-            RectifyProcessor(camera=cc, device="cpu")
+    # fisheye and omni cameras rectify; omni against the JAX processor
+    for model, dist in (("fisheye", [0.1, 0.0, 0.0, 0.0]), ("omni", [0.9, -0.1, 0.0, 0.0, 0.0])):
+        kw = dict(number=0, model=model, fx=100.0, fy=100.0, cx=80.0, cy=60.0,
+                  distortion=np.asarray(dist, np.float32), width=160, height=120)
+        proc = RectifyProcessor(camera=CameraConfig(**kw), device="cpu")
+        assert proc._maps[0].shape == (120, 160, 2) and proc._maps[1] is None
+        if model == "omni":
+            np.testing.assert_array_equal(proc.K_new, JRect(camera=JCC(**kw)).K_new)
+        else:
+            np.testing.assert_array_equal(proc.K_new, np.float32([[100, 0, 80], [0, 100, 60],
+                                                                  [0, 0, 1]]))
 
 
 def test_vocabulary_training_refuses():
-    cam = TCam.make(100.0, 100.0, 80.0, 60.0, device="cpu")
-    tr = VSLAMTracker(cam, {"loop_closure": True, "vocab_file": "/nonexistent/v"},
+    """No vocabulary file: at 4 keyframes the tracker trains one on the
+    map's valid keyframe descriptors, as the JAX tracker does; with the JAX
+    draw fed in, the same words."""
+    import jax
+    import jax.numpy as jnp
+
+    from lpslam_tpu.geometry import PinholeCamera as JCam
+    from lpslam_tpu.pipeline.trackers import VSLAMTracker as JTracker
+    from lpslam_tpu_torch.loop import vocab as tvocab
+
+    config = {"keypoints": 96, "loop_closure": True, "vocab_file": "/nonexistent/v"}
+    tr = VSLAMTracker(TCam.make(100.0, 100.0, 80.0, 60.0, device="cpu"), dict(config),
                       device="cpu")
+    ref = JTracker(JCam.make(100.0, 100.0, 80.0, 60.0), dict(config))
     tr._ensure_loop_closer()
-    assert tr.loop_closer is None
-    tr.engine._kf_count = 4
-    tr.engine.map = tr.engine.map._replace(n_kf=torch.tensor(4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tr._maybe_close_loop()
+    ref._ensure_loop_closer()
+    assert tr.loop_closer is None and ref.loop_closer is None
+    rng = np.random.default_rng(0)
+    shape = tuple(tr.engine.map.kf_desc.shape)
+    desc = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    valid = rng.random(shape[:2]) < 0.7
+    valid[4:] = False
+    tr.engine.map = tr.engine.map._replace(
+        kf_desc=torch.from_numpy(desc.view(np.int32)), kf_kp_valid=torch.from_numpy(valid),
+        n_kf=torch.tensor(4, dtype=torch.int32))
+    ref.engine.map = ref.engine.map._replace(
+        kf_desc=jnp.asarray(desc), kf_kp_valid=jnp.asarray(valid), n_kf=jnp.asarray(4, jnp.int32))
+
+    def jax_draw(n, n_words, seed, device):
+        idx = jax.random.choice(jax.random.PRNGKey(seed), n, (n_words,), replace=False)
+        return torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+
+    orig = tvocab._kmajority_draw
+    tvocab._kmajority_draw = jax_draw
+    try:
+        assert tr._maybe_close_loop() is False
+    finally:
+        tvocab._kmajority_draw = orig
+    assert ref._maybe_close_loop() is False
+    n = min(4096, int(valid[:4].sum()))
+    assert tr.loop_closer.vocab.words.shape[0] == min(512, max(64, n // 8))
+    np.testing.assert_array_equal(tr.loop_closer.vocab.words.numpy().view(np.uint32),
+                                  np.asarray(ref.loop_closer.vocab.words))
+    assert tr.loop_closer.n == ref.loop_closer.n == 4
+    np.testing.assert_allclose(tr.loop_closer.db[:4].numpy(), np.asarray(ref.loop_closer.db[:4]),
+                               atol=1e-6)
 
 
 def test_tracker_result_pose_matches_jax():

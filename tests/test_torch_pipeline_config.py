@@ -1,9 +1,9 @@
 """Port parity, the JSON config file: lpslam_tpu_torch/pipeline/config.py
 against lpslam_tpu/pipeline/config.py.
 
-- The three shipped example files parse to equal FullConfigs (the
-  zed_live_record.json sources and its recording refuse only when a
-  manager builds them);
+- The three shipped example files parse to equal FullConfigs, and
+  zed_live_record.json (ZED source, fisheye Rectify, stereo tracker with
+  loop closure, recording) builds into a manager;
 - bad camera entries raise the same ConfigError messages;
 - `rotation_vec` gives cv2.Rodrigues' matrix within 1e-12;
 - the manager and marker sections, and file errors, match.
@@ -51,16 +51,28 @@ def test_example_files_parse_equal(path):
 
 
 def test_zed_example_refuses_only_when_built():
+    """The ZED example builds whole: the ZED source (its camera opens at
+    start), the fisheye Rectify processor (the mono fisheye grid of the one
+    configured camera), the stereo tracker and recording."""
+    from lpslam_tpu_torch.geometry.camera import undistort_map_fisheye
     from lpslam_tpu_torch.pipeline.manager import SlamManager
+    from lpslam_tpu_torch.pipeline.sources import ZedOpenCaptureSource
 
     cfg = tc.load_config_file(os.path.join(REPO, "examples", "zed_live_record.json"))
     assert cfg.manager.record and cfg.datasources[0][0] == "Zed"
-    with pytest.raises(NotImplementedError, match="item 21"):
-        SlamManager(cfg, device="cpu")                        # the ZED source
-    with pytest.raises(NotImplementedError, match="item 23"):
-        SlamManager(dataclasses.replace(cfg, datasources=[]), device="cpu")   # fisheye
-    # recording itself is ported
-    mgr = SlamManager(dataclasses.replace(cfg, datasources=[], processors=[]), device="cpu")
+    mgr = SlamManager(cfg, device="cpu")
+    src, = mgr.sources
+    assert isinstance(src, ZedOpenCaptureSource)
+    assert src.cfg["height"] == 720 and src.cfg["fps"] == 30 and src.cfg["auto_gain"]
+    proc, = mgr.processors
+    cam = cfg.cameras[0]
+    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]])
+    np.testing.assert_array_equal(proc._maps[0].numpy(),
+                                  undistort_map_fisheye(K, cam.distortion, (720, 1280)))
+    assert proc._maps[1] is None
+    tracker, = mgr.trackers
+    assert tracker.cfg["mode"] == "stereo" and tracker.cfg["loop_closure"]
+    assert tracker.cfg["focal_x_baseline"] == 84.0
     assert mgr._record_enabled and mgr.recorder.record_images == cfg.manager.record_images
 
 

@@ -10,10 +10,10 @@
 - Blackout and AdjustIntensity equal JAX's output exactly.
 - RectifyProcessor (numpy grids, port remap) against the JAX one (cv2 grids
   for mono, cv2.stereoRectify for the pair) on the 160x120 room: grids
-  within 1e-3 px (mono equal, the pair 4.6e-4 px: the rectified focal
-  length differs by 9.4e-6 relative, so K_new is held within 2e-5), frames
-  within 1e-3 gray levels for mono and 0.1 for the pair (0.05 measured on
-  the room's sharpest edges).
+  within 1e-3 px and K_new within 2e-5, frames within 1e-3 gray levels for
+  mono and 0.1 for the pair (measured: grids and K_new equal since the
+  inner rectangle follows OpenCV 5.0's grid; before, the pair was 4.6e-4 px
+  and 9.4e-6 relative off).
 - make_sequence frames within 1e-3 gray levels of JAX's, poses within 1e-6;
   imu_from_poses within 1e-4 rad/s and 1e-6 relative; waypoint_trajectory equal.
 - Map files cross between the packages in both directions, equal field by

@@ -187,17 +187,26 @@ def test_refused_options_and_sources(tmp_path):
     from lpslam_tpu_torch.pipeline.config import CameraConfig
     from lpslam_tpu_torch.pipeline.manager import SlamManager
 
-    mgr = SlamManager(device="cpu")
-    for name, conf, item in (("OpenCV", {}, 21), ("Zed", {}, 21), ("ZedSdk", {}, 21)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            mgr.add_source_by_name(name, conf)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        mgr.add_processor_by_name("CameraCalibration", {})
+    from lpslam_tpu.pipeline.manager import SlamManager as JManager
+    from lpslam_tpu_torch.pipeline.processors import CameraCalibrationProcessor
+    from lpslam_tpu_torch.pipeline.sources import OpenCVCameraSource, ZedOpenCaptureSource
+
+    # the live sources, calibration and fisheye Rectify are ported: they
+    # build by name as in the JAX manager (ZedSdk without pyzed raises in both)
+    mgr, ref = SlamManager(device="cpu"), JManager()
+    for name, cls in (("OpenCV", OpenCVCameraSource), ("Zed", ZedOpenCaptureSource)):
+        assert isinstance(mgr.add_source_by_name(name, {}), cls)
+        assert type(ref.add_source_by_name(name, {})).__name__ == cls.__name__
+    for m in (mgr, ref):
+        with pytest.raises(RuntimeError, match="pyzed"):
+            m.add_source_by_name("ZedSdk", {})
+    assert isinstance(mgr.add_processor_by_name("CameraCalibration", {}),
+                      CameraCalibrationProcessor)
     mgr.set_camera_configuration(CameraConfig(
         number=0, model="fisheye", fx=100.0, fy=100.0, cx=80.0, cy=60.0,
         distortion=np.zeros(4, np.float32), width=160, height=120))
-    with pytest.raises(NotImplementedError, match="item 23"):
-        mgr.add_processor_by_name("Rectify", {})
+    proc = mgr.add_processor_by_name("Rectify", {})
+    assert proc._maps[0].shape == (120, 160, 2)
     # the live view stays refused (it needs a display); record and replay,
     # JPEG input and the image callback are ported (tests/test_torch_record.py)
     mgr.show_live = True
@@ -214,7 +223,8 @@ def test_refused_options_and_sources(tmp_path):
     assert lm._m.recorder.record_images is False
     assert lm.read_replay_items(str(tmp_path / "missing.pb")) is False
     assert lm.compress_image(np.zeros((4, 4)))[:3] == b"\xff\xd8\xff"
-    assert lm.add_image_data_source("Zed", {}) is False       # the facade swallows it
+    assert lm.add_image_data_source("ZedSdk", {}) is False    # the facade swallows it
+    assert lm.add_image_data_source("Zed", {}) is True
 
 
 def test_default_device_is_the_card():

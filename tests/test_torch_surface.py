@@ -22,11 +22,6 @@ REPO = Path(__file__).resolve().parents[1]
 ALLOWED_GAPS = {
     # ROADMAP rule 9: the +/-1 matmul Hamming matrix no caller selects
     ("kernels", "hamming_matrix"),
-    # ROADMAP Queue 1 item 23: fisheye and omni rectification
-    ("geometry", "distort_fisheye"),
-    ("geometry", "undistort_points_fisheye"),
-    # ROADMAP Queue 1 item 15 (rest): vocabulary training
-    ("loop", "train_vocabulary"),
 }
 ALLOWED_MISSING_PACKAGES = {
     "dist",      # ROADMAP Queue 1 item 19: dist/ on torch.distributed
