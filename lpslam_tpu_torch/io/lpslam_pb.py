@@ -9,9 +9,10 @@ imports no JAX but sits in a package that does).
 
 A self-contained proto3 wire codec for exactly these messages (doubles as
 fixed64; int64 / int32 / bool as varints; bytes, strings and nested messages
-length-delimited); no protoc. The framing is pure Python: the JAX package's
-native StreamWriter / StreamReader come with ROADMAP Queue 1 item 24, and the
-bytes on disk are the same either way.
+length-delimited); no protoc. The framing and file IO run in the native
+module (``native/``: StreamWriter / StreamReader, the GIL released while
+they write or read) when it builds, else in Python; the bytes on disk are
+the same either way.
 """
 from __future__ import annotations
 
@@ -493,21 +494,36 @@ _DECODERS = {
 # ---------------------------------------------------------------------------
 
 
+def _native_io():
+    from ..native import get_native
+
+    return get_native()
+
+
 class ProtoStreamWriter:
-    """[u64 type][u64 size][payload] framing, little-endian, 5 MB cap."""
+    """[u64 type][u64 size][payload] framing, little-endian, 5 MB cap; the
+    native StreamWriter frames and writes when the module is there."""
 
     def __init__(self, path):
-        self.f = open(path, "wb")
+        mod = _native_io()
+        self._native = mod.StreamWriter(str(path)) if mod is not None else None
+        self.f = None if self._native is not None else open(path, "wb")
 
     def write(self, msg_type: int, msg) -> None:
         payload = msg.encode()
+        if self._native is not None:
+            self._native.write(msg_type, payload)
+            return
         if len(payload) > MAX_MSG_SIZE:
             raise ValueError(f"message of {len(payload)} bytes exceeds 5 MB cap")
         self.f.write(struct.pack("<QQ", msg_type, len(payload)))
         self.f.write(payload)
 
     def close(self):
-        self.f.close()
+        if self._native is not None:
+            self._native.close()
+        else:
+            self.f.close()
 
     def __enter__(self):
         return self
@@ -517,27 +533,41 @@ class ProtoStreamWriter:
 
 
 class ProtoStreamReader:
+    """Iterates (type, decoded message), or (type, raw bytes) for an unknown
+    type; the native StreamReader reads when the module is there."""
+
     def __init__(self, path):
-        self.f = open(path, "rb")
+        mod = _native_io()
+        self._native = mod.StreamReader(str(path)) if mod is not None else None
+        self.f = None if self._native is not None else open(path, "rb")
 
     def __iter__(self):
         return self
 
     def __next__(self):
-        hdr = self.f.read(16)
-        if len(hdr) < 16:
-            raise StopIteration
-        msg_type, size = struct.unpack("<QQ", hdr)
-        if size > MAX_MSG_SIZE:
-            raise ValueError(f"corrupt stream: message size {size}")
-        payload = self.f.read(size)
+        if self._native is not None:
+            item = self._native.read()
+            if item is None:
+                raise StopIteration
+            msg_type, payload = item
+        else:
+            hdr = self.f.read(16)
+            if len(hdr) < 16:
+                raise StopIteration
+            msg_type, size = struct.unpack("<QQ", hdr)
+            if size > MAX_MSG_SIZE:
+                raise ValueError(f"corrupt stream: message size {size}")
+            payload = self.f.read(size)
         dec = _DECODERS.get(msg_type)
         if dec is None:
             return msg_type, payload  # unknown type: raw passthrough
         return msg_type, dec.decode(payload)
 
     def close(self):
-        self.f.close()
+        if self._native is not None:
+            self._native = None   # the native reader closes its file when freed
+        else:
+            self.f.close()
 
     def __enter__(self):
         return self

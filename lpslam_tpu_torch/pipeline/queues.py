@@ -1,8 +1,11 @@
 """Bounded queues and managed worker threads, the pipeline's plumbing (port
 of lpslam_tpu/pipeline/queues.py).
 
-``BoundedQueue`` is the stdlib-backed queue: a full queue drops its oldest
-entry on ``push``, so a source that outruns the tracker loses frames.
+``BoundedQueue(maxsize)`` gives the native queue of ``native/`` (C++, it
+releases the GIL while it blocks) when that module builds, else the
+stdlib-backed ``PyBoundedQueue``; both have the same surface, and a full
+queue drops its oldest entry on ``push``, so a source that outruns the
+tracker loses frames.
 ``ManagedThread`` runs a function in a loop until stopped; an exception in
 an iteration is logged and kept in ``error`` (the manager's status shows it)
 and the loop goes on.
@@ -94,8 +97,54 @@ class PyBoundedQueue(queue.Queue):
             return None
 
 
-# the pipeline's queue: the stdlib-backed one (the port has no native queue)
-BoundedQueue = PyBoundedQueue
+class NativeBoundedQueue:
+    """``PyBoundedQueue``'s surface over the C++ queue of
+    ``csrc/native_module.cpp``, which releases the GIL while it waits."""
+
+    def __init__(self, native_mod, maxsize: int = 32):
+        self._q = native_mod.BoundedQueue(maxsize=maxsize)
+
+    def push(self, item, drop_oldest: bool = True):
+        if drop_oldest:
+            self._q.push(item, timeout=0.0, drop_oldest=True)
+        else:
+            self._q.push(item)  # blocks until there is room
+
+    def pop(self, timeout: Optional[float] = None):
+        return self._q.pop(timeout=-1.0 if timeout is None else float(timeout))
+
+    def get_nowait(self):
+        item = self._q.pop(timeout=0.0)
+        if item is None:
+            raise queue.Empty
+        return item
+
+    def get(self, timeout: Optional[float] = None):
+        item = self._q.pop(timeout=-1.0 if timeout is None else float(timeout))
+        if item is None:
+            raise queue.Empty
+        return item
+
+    def put_nowait(self, item):
+        if not self._q.push(item, timeout=0.0):
+            raise queue.Full
+
+    def qsize(self) -> int:
+        return self._q.qsize()
+
+    def empty(self) -> bool:
+        return self._q.qsize() == 0
+
+
+def BoundedQueue(maxsize: int = 32):
+    """The pipeline's queue: native when ``native.get_native()`` has the
+    module, else the stdlib-backed one (the same surface)."""
+    from ..native import get_native
+
+    mod = get_native()
+    if mod is not None:
+        return NativeBoundedQueue(mod, maxsize=maxsize)
+    return PyBoundedQueue(maxsize=maxsize)
 
 
 class ManagedThread:

@@ -42,6 +42,9 @@ one; run them there with
   sums in another order: 2.7e-7 relative at one of 31,707 entries on an H100
   80GB HBM3 at 700 W); ``correct_loop`` on a synthetic circle map within 1e-3
   (the JAX parity bound of tests/test_torch_loop.py).
+- dist/ and native/ on the card: ``distributed_bundle_adjust`` in a world of
+  one over NCCL (and on the default mesh) against the CPU, and the native
+  queue carrying CUDA tensors between threads.
 """
 import numpy as np
 import pytest
@@ -344,3 +347,68 @@ def test_replay_on_card_runs_the_kernels(cuda_device, tmp_path):
     st = mgr.get_status()
     assert st.error == "" and st.frames_processed == 12, st
     assert patch.LAUNCHES >= before[0] + 12 and fast_nms.LAUNCHES >= before[1] + 12
+
+
+def _dba_world(mesh, C, P, N):
+    """distributed_bundle_adjust in a spawned world (NCCL on the card)."""
+    from lpslam_tpu_torch.dist import distributed_bundle_adjust
+    from lpslam_tpu_torch.eval.scaling import _camera, build_problem
+
+    res = distributed_bundle_adjust(build_problem(C, P, N, device=mesh.device),
+                                    _camera(mesh.device), mesh=mesh, iters=8)
+    return {k: getattr(res, k).cpu().numpy() for k in ("cam_t", "points", "final_cost")}
+
+
+def test_distributed_bundle_adjust_on_card_matches_cpu(cuda_device):
+    """A world of one over NCCL on the card, and the default mesh (no
+    process group) there, against the same solve on the CPU: the card sums
+    in another order, so within 2e-4 on cam_t (the JAX package's spread
+    across mesh sizes) and 1e-4 on the cost.
+    Every camera sees every landmark: with 64 of 512 per camera, single-view
+    landmarks make the solve chaotic in fp32, whichever solver runs it. At
+    16 x 512 x 64, seeds 0-4, on an H100 80GB HBM3 at 700 W
+    (tools/dist_card_spread.py), the card lands 4.4e-2 to 1.4e-1 (cam_t)
+    from the CPU with this solver and 8.9e-3 to 4.1e-1 with the one-device
+    backend.ba.bundle_adjust, and on the CPU fp32 lands 5.5e-3 to 2.2e-1
+    from fp64 (JAX's own meshes of 1 and 8: 9e-3). At 8 x 256 x 256 every
+    one of these is within 2.1e-5."""
+    from lpslam_tpu_torch.dist import distributed_bundle_adjust
+    from lpslam_tpu_torch.dist.mesh import run_world
+    from lpslam_tpu_torch.eval.scaling import _camera, build_problem
+
+    C, P, N = 8, 256, 256
+    cpu = distributed_bundle_adjust(build_problem(C, P, N), _camera("cpu"), iters=8)
+    card = run_world(_dba_world, 1, C, P, N, backend="nccl", device="cuda", timeout=300.0)[0]
+    local = distributed_bundle_adjust(build_problem(C, P, N, device=cuda_device),
+                                      _camera(cuda_device), iters=8)
+    for got in (card, {k: getattr(local, k).cpu().numpy() for k in card}):
+        np.testing.assert_allclose(got["cam_t"], cpu.cam_t.numpy(), atol=2e-4)
+        assert abs(float(got["final_cost"]) - float(cpu.final_cost)) <= 1e-4 * float(cpu.final_cost)
+    assert float(cpu.final_cost) < float(cpu.initial_cost)
+
+
+def test_native_queue_carries_card_tensors_between_threads(cuda_device):
+    import threading
+
+    from lpslam_tpu_torch.pipeline.queues import BoundedQueue, NativeBoundedQueue
+
+    q = BoundedQueue(maxsize=4)
+    assert isinstance(q, NativeBoundedQueue)
+    sent = [torch.full((256, 256), float(i), device=cuda_device) for i in range(32)]
+    got = []
+
+    def consumer():
+        while len(got) < len(sent):
+            item = q.pop(timeout=5.0)
+            if item is None:
+                return
+            got.append((item, float(item.sum())))
+
+    t = threading.Thread(target=consumer)
+    t.start()
+    for x in sent:
+        q.push(x, drop_oldest=False)        # blocks while the queue is full
+    t.join(timeout=30)
+    assert not t.is_alive()
+    assert [g[0] is x for g, x in zip(got, sent)] == [True] * len(sent)
+    assert [g[1] for g in got] == [256 * 256 * float(i) for i in range(len(sent))]
