@@ -4,7 +4,8 @@
 
 Phases (each prints a line; any failure exits non-zero and prints no result):
 1. require a CUDA card; print `nvidia-smi`'s name and power limit;
-2. build the hand-written CUDA kernels from csrc/, one nvcc per source, all
+2. build the hand-written CUDA kernels from csrc/ (patch, FAST+NMS,
+   Hamming), one nvcc per source, all
    started together, and the native module (csrc/native_module.cpp, g++)
    beside them (timed);
 3. the patch kernel, 3b. the FAST+NMS kernel in both forms (fixed ceiling,
@@ -22,6 +23,14 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    and operations over 33.5 T/s (the card's fp32 rate outside the tensor
    cores, 67 TFLOP/s, counts an FMA as two; these kernels have none); the
    FAST operations are counted on the timed images (`fast_operations`);
+3c. the Hamming kernel (csrc/hamming.cu, XOR + popcount of 256-bit
+   descriptors; every matcher's distances on the card) against its plain
+   version (a SWAR popcount) on the card, bit-equal, at the tracker's
+   4096 x 1200 and at 1 x 1, 0 x 5, 257 x 131, all-equal and all-complement
+   descriptors; timed like the others, beside the port's ±1 product and
+   torch.cdist(p=0) on the unpacked bits (its `library_ms` where it gives
+   the same integers); the line also prints a popcount-issue estimate (16
+   per SM per clock at the card's maximum SM clock), kept out of the record;
 4. the monocular slice at the reference operating point (640x480 ray-cast
    room with lens distortion, 1200 keypoints, 3 levels, the composite's
    FAST score with each frame's ceiling, chunks of 16): host initialization,
@@ -119,8 +128,22 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    cost within 2.8e-3 and kf_t within 3.5e-3 (about twice the JAX
    package's own spread across mesh sizes on a room map: RESIDENT_*;
    tests/test_resident_map.py's 3e-4 holds on its 10-keyframe toy only).
+16. the descriptor modes binned, gather and exact, each through
+   VSLAMTracker (mono, 1200 keypoints, 3 levels, chunks of 16, no loop
+   closure) on the first BRIEF_FRAMES (112) frames of phase 7's room (no
+   new rendering), fed up to the last whole chunk after host initialization
+   (100 of them when initialization takes 4 frames), each with the launch
+   counters reset before it and read after it: tracked after init >= 0.9, Sim3 ATE < 0.10 m and within max(1.5 x,
+   + 0.02 m) of the JAX package's CPU run on the same frames (JAX_BRIEF_REF,
+   tools/jax_brief_reference.py), the FAST kernels once per level per
+   extraction in every mode and the patch kernel in binned only; one frame
+   per mode on the card against the CPU (level-0 keypoints equal, angles
+   within 5e-4 rad at strong centroids, < 2% of the bits); and the matchers
+   on the card (the Hamming kernel, once per call) giving the same indices
+   and flags as on the CPU (its plain version) on the room's frames (4096
+   queries x 1200 keypoints projected, and mutual).
 Phases 9-12 check that no worker or tracker error was recorded and that
-each of the three kernels launched; each prints its frames/s and wall time.
+each of the four kernels launched; each prints its frames/s and wall time.
 Each path resets the kernels' launch counters just before its
 initialization and reads them just after its loop. Checks per path: ends
 TRACKING, >= 90% frames tracked, finite poses, >= 2 keyframes inserted in
@@ -128,12 +151,17 @@ the chunk loop, the kernels launched on every extraction (the patch and
 score kernels once per level; on the mono paths, phases 4, 7 and 8, the max
 pass too), and ATE under a bound: Sim3-aligned < 0.10 m for mono; aligned without scale (depth fixes
 the scale) under max(1.5 x, + 0.02 m) of the JAX package's CPU run on the
-same frames for stereo and RGB-D (JAX_CPU_ATE).
+same frames for stereo and RGB-D (JAX_CPU_ATE). Every matcher (tracking,
+mapping, stereo, relocalization, loop verification) takes its distances
+from the Hamming kernel: the chunk loops launch it at least twice per frame
+(the two projected matchings), phase 7 at least twice per tracked frame,
+and every other path that tracks at least once.
 
 The line before the last is the per-kernel JSON record: launches summed
-over the paths of phases 4-14; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
-three levels at B = 16; `enqueue_us` the mean over them; `levels` the
-per-level and B = 1 readings. The last line is {"ok": true, "device": {...}}.
+over the paths of phases 4-14 and 16; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
+three levels at B = 16 (the Hamming kernel: at 4096 x 1200); `enqueue_us`
+the mean over them; `levels` the per-level and B = 1 readings. The last
+line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -323,6 +351,15 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_max_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -660,21 +697,129 @@ def check_fast_kernel(device, seed: int = 1):
                           "lpslam_tpu/kernels/pallas_fast.py:111", max_err[1], levels[1]))
 
 
-def _kernel_counters():
-    from lpslam_tpu_torch.kernels import fast_nms, patch
+# the tracker's matching size: local-map points x keypoints
+# (lpslam_tpu/frontend/tracker.py:175,197)
+HAMMING_SIZE = (4096, KEYPOINTS)
+# __popc issues at 16 per SM per clock on sm_90 (the integer pipe), 132 SMs
+POPC_PER_CLOCK = 16 * 132
 
-    return fast_nms, patch
+
+def hamming_operations(na: int, nb: int) -> int:
+    """XOR, popcount and add of each of the 8 words of every output."""
+    return na * nb * 8 * 3
+
+
+def check_hamming_kernel(device, seed: int = 3):
+    """Phase 3c: the Hamming kernel against its plain version (a SWAR
+    popcount) on the card, bit-equal, at the tracker's 4096 x 1200 and at
+    1 x 1, 0 x 5, 257 x 131, all-equal and all-complement descriptors; timed
+    as phases 3 / 3b time theirs, beside the port's ±1 product and
+    torch.cdist(p=0) on the unpacked bits where that gives the same
+    integers. Returns the kernel record (launches filled in by the phases
+    that drive the main path)."""
+    from lpslam_tpu_torch.kernels import match
+
+    rng = np.random.default_rng(seed)
+
+    def desc(n):
+        return torch.from_numpy(rng.integers(0, 2**32, (n, 8), dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(device)
+
+    na, nb = HAMMING_SIZE
+    a, b = desc(na), desc(nb)
+    cases = {"4096x1200": (a, b), "1x1": (a[:1], b[:1]), "0x5": (a[:0], b[:5]),
+             "257x131": (a[:257], b[:131]), "all-equal": (b, b), "all-complement": (b, ~b)}
+    max_err, differ = 0, []
+    for name, (x, y) in cases.items():
+        got = match.hamming_matrix_cuda(x, y)
+        want = match.hamming_matrix_reference(x, y)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"Hamming kernel on {name}: {tuple(got.shape)} {got.dtype}, "
+                                 f"want {tuple(want.shape)} {want.dtype}")
+        if got.numel():
+            max_err = max(max_err, int((got - want).abs().max()))
+        if not torch.equal(got, want):
+            differ.append(name)
+    if differ:
+        raise AssertionError(f"Hamming kernel differs on {differ} (max abs err {max_err})")
+    if not (torch.diagonal(match.hamming_matrix_cuda(b, b)) == 0).all() or not (
+            torch.diagonal(match.hamming_matrix_cuda(b, ~b)) == 256).all():
+        raise AssertionError("Hamming kernel: equal descriptors must be 0 apart, complements 256")
+    print("hamming " + ", ".join(cases) + ": bit-equal")
+
+    n_bytes = 4 * (na * 8 + nb * 8 + na * nb)
+    n_ops = hamming_operations(na, nb)
+    bound, by = bound_of(n_bytes, n_ops)
+    clock_hz = sm_clock_max_mhz() * 1e6
+    popc_ms = na * nb * 8 / (POPC_PER_CLOCK * clock_hz) * 1e3
+    out = torch.empty((na, nb), dtype=torch.int32, device=device)
+    warm, cold = device_times(lambda x: match.launch_hamming(*x),
+                              lambda: (desc(na), desc(nb), torch.empty_like(out)), n_bytes)
+    rec = {
+        "name": "hamming_matrix", "route": "cuda",
+        "source": "lpslam_tpu_torch/csrc/hamming.cu",
+        "replaces": "lpslam_tpu/kernels/match.py:22 (XLA population_count, no Pallas kernel)",
+        "launches": 0, "max_abs_err": max_err,
+        "ms": cuda_ms(lambda: match.hamming_matrix(a, b)),
+        "plain_ms": cuda_ms(lambda: match.hamming_matrix_reference(a, b), iters=10, warmup=2),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "device_ms": warm, "device_cold_ms": cold,
+        "enqueue_us": enqueue_us(lambda: match.hamming_matrix(a, b)),
+        "mxu_ms": cuda_ms(lambda: match.hamming_matrix_mxu(a, b)),
+    }
+    # one PyTorch call computing the same integers: cdist(p=0) counts the
+    # differing coordinates of the unpacked 0/1 bits
+    bits_a = (match._unpack_pm1(a) > 0).to(torch.float32)
+    bits_b = (match._unpack_pm1(b) > 0).to(torch.float32)
+    try:
+        cd = torch.cdist(bits_a, bits_b, p=0)
+        torch.cuda.synchronize()
+        cdist_equal = bool(torch.equal(cd.to(torch.int32), match.hamming_matrix(a, b)))
+        cdist_ms = cuda_ms(lambda: torch.cdist(bits_a, bits_b, p=0), iters=10, warmup=2)
+    except RuntimeError as exc:          # reported, not used: the yardstick only
+        cdist_equal, cdist_ms = False, None
+        print(f"torch.cdist(p=0) on the card: {exc}")
+    rec["cdist_ms"], rec["cdist_equal"] = cdist_ms, cdist_equal
+    rec["library_ms"] = cdist_ms if cdist_equal else rec["mxu_ms"]
+    rec["library"] = "torch.cdist(p=0)" if cdist_equal else "hamming_matrix_mxu (fp32 ±1 matmul)"
+    # an estimate, not a measurement: printed here, kept out of the record
+    print(f"hamming {na}x{nb}: {n_bytes} bytes, {n_ops} operations; device {warm:.4f} ms "
+          f"(L2-warm), {cold:.4f} ms (cold), bound {bound:.4f} ms ({by}), share "
+          f"{bound / warm:.2f}; popcount issue estimate {popc_ms:.4f} ms at "
+          f"{POPC_PER_CLOCK // 132} per SM per clock and the {clock_hz / 1e9:.2f} GHz "
+          f"maximum SM clock; wrapper {rec['enqueue_us']:.1f} us/call, event mean "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, ±1 product {rec['mxu_ms']:.4f} "
+          f"ms, cdist(p=0) {cdist_ms} ms (same integers: {cdist_equal})")
+    return rec
+
+
+def _kernel_counters():
+    from lpslam_tpu_torch.kernels import fast_nms, match, patch
+
+    return fast_nms, patch, match
 
 
 def reset_launches():
-    fast_nms, patch = _kernel_counters()
-    fast_nms.LAUNCHES = fast_nms.MAX_LAUNCHES = patch.LAUNCHES = 0
+    fast_nms, patch, match = _kernel_counters()
+    fast_nms.LAUNCHES = fast_nms.MAX_LAUNCHES = patch.LAUNCHES = match.LAUNCHES = 0
+
+
+EXTRACTION_KERNELS = ("fast_nms_score", "fast_lo_max", "extract_patches")
 
 
 def read_launches() -> dict:
-    fast_nms, patch = _kernel_counters()
+    """Every kernel's count: the three extraction kernels' and the Hamming
+    kernel's (every matcher call: tracking, mapping, stereo, relocalization,
+    loop verification)."""
+    fast_nms, patch, match = _kernel_counters()
     return {"fast_nms_score": fast_nms.LAUNCHES, "fast_lo_max": fast_nms.MAX_LAUNCHES,
-            "extract_patches": patch.LAUNCHES}
+            "extract_patches": patch.LAUNCHES, "hamming_matrix": match.LAUNCHES}
+
+
+def extraction(launches: dict) -> dict:
+    """The extraction kernels' part of a read_launches() dict."""
+    return {k: launches[k] for k in EXTRACTION_KERNELS}
 
 
 def init_slice(device, mode: str = "mono", h: int = 480, w: int = 640,
@@ -846,7 +991,11 @@ def run_slice(device, mode: str = "mono", levels: int = LEVELS, chunk: int = CHU
     want = levels * (n_chunks + (kf_in_loop if mode == "stereo" else 0))
     want_all = {"extract_patches": want, "fast_nms_score": want,
                 "fast_lo_max": want if mode == "mono" else 0}
-    checks[f"the kernels on every extraction ({want_all})"] = loop_launches == want_all
+    checks[f"the kernels on every extraction ({want_all})"] = (
+        extraction(loop_launches) == want_all)
+    # two projected matchings (wide, then tight window) on every frame
+    checks[f"the Hamming kernel >= twice per frame ({2 * n_frames})"] = (
+        loop_launches["hamming_matrix"] >= 2 * n_frames)
     if mode == "mono":
         init = st["init_launches"]
         checks["the kernels on every host frame"] = (
@@ -994,8 +1143,10 @@ def run_loop_room(device, raw, gt, K, grid, config=None):
         "ends TRACKING": eng.status == TrackerStatus.TRACKING,
         "tracked >= 0.9": res["tracked_fraction"] >= 0.9,
         "finite map": bool(torch.isfinite(eng.map.kf_t).all() and torch.isfinite(eng.map.lm_pos).all()),
-        "the three kernels on every extraction": all(
-            n == LEVELS * extractions for n in launches.values()),
+        "the three extraction kernels on every extraction": all(
+            n == LEVELS * extractions for n in extraction(launches).values()),
+        "the Hamming kernel >= twice per tracked frame": (
+            launches["hamming_matrix"] >= 2 * met["tracked"]),
     }
     if JAX_LOOP_REF is not None:
         n_ref = len(JAX_LOOP_REF["closures"])
@@ -1026,8 +1177,9 @@ def run_kidnap(device, tracker, gt, align, rectified, frames=KIDNAP_FRAMES):
         ">= 3 of 4 relocalized": n_ok >= 0.75 * len(out),
         f"each relocalized centre within {bound:.4f} m": all(
             r["err_m"] <= bound for r in out if r["relocalized"]),
-        "the three kernels on every extraction": all(
-            n == LEVELS * len(out) for n in res["launches"].values()),
+        "the three extraction kernels on every extraction": all(
+            n == LEVELS * len(out) for n in extraction(res["launches"]).values()),
+        "the Hamming kernel launched": res["launches"]["hamming_matrix"] > 0,
     }
     if JAX_LOOP_REF is not None:
         n_ref = sum(r["relocalized"] for r in JAX_LOOP_REF["relocalization"])
@@ -1193,7 +1345,7 @@ def run_cli_phase(device, images, gt, K, tmp):
         ">= 0.9 of the frames after init tracked": met["tracked"] >= 0.9 * met["after"],
         "map file written": res["map_file_bytes"] > 0,
         "one CSV row per landmark": n_rows == line["landmarks"] > 0,
-        "the three kernels launched": all(n > 0 for n in launches.values()),
+        "the four kernels launched": all(n > 0 for n in launches.values()),
     }
     if JAX_PIPELINE_REF is not None:
         checks[f"ATE <= {pipe_bound('cli'):.4f} m"] = met["ate_m_sim3"] <= pipe_bound("cli")
@@ -1247,7 +1399,7 @@ def run_localize_phase(device, images, gt, K, tmp, map_file):
             met["tracked"] > 0 and met["tracked"] >= 0.9 * met["after"],
         "one feature per landmark": res["features"] == st.landmarks > 0,
         "occupied cells": res["occupied_cells"] > 0,
-        "the three kernels launched": all(n > 0 for n in launches.values()),
+        "the four kernels launched": all(n > 0 for n in launches.values()),
     }
     if JAX_PIPELINE_REF is not None:
         checks[f"ATE <= {pipe_bound('localize'):.4f} m"] = (
@@ -1281,7 +1433,7 @@ def run_dataset_phase(tmp):
         "rc 0": rc == 0,
         ">= 0.9 tracked": line["tracked"] >= 0.9 * line["frames"],
         ">= 1 closure accepted": len(closures) >= 1,
-        "the three kernels launched": all(n > 0 for n in launches.values()),
+        "the four kernels launched": all(n > 0 for n in launches.values()),
     }
     if JAX_PIPELINE_REF is not None:
         ref = JAX_PIPELINE_REF["room"]
@@ -1398,7 +1550,7 @@ def run_record_replay_phase(device, gt, K, tmp):
         "12a: >= 1 SensorGlobalState": stream["counts"].get("global_state", 0) >= 1,
         "12a: one result message per valid result":
             stream["counts"].get("result", 0) == line["tracked"],
-        "12a: the three kernels launched": all(n > 0 for n in launches_a.values()),
+        "12a: the four kernels launched": all(n > 0 for n in launches_a.values()),
     })
 
     # 12b: replay, the same config without its source
@@ -1435,7 +1587,7 @@ def run_record_replay_phase(device, gt, K, tmp):
         f"12b: {PIPE_FRAMES} frames processed": line["frames"] == PIPE_FRAMES,
         "12b: >= 0.9 of the frames after init tracked": met["tracked"] >= 0.9 * met["after"],
         f"12b: ATE <= {bound:.4f} m": met["ate_m_sim3"] <= bound,
-        "12b: the three kernels launched": all(n > 0 for n in launches_b.values()),
+        "12b: the four kernels launched": all(n > 0 for n in launches_b.values()),
     })
 
     # 12c: the codec's bytes on this host
@@ -1776,7 +1928,7 @@ def zed_checks(a: dict, b: dict, c: dict) -> list:
         "13a: rc 0, no worker error": a["rc"] == 0 and a["cli"]["error"] == "",
         f"13a: {n} frames processed, none dropped": a["processed"] == n == a["pushed"],
         "13a: one .pb recording": a["pb_files"] == 1,
-        "13a/b: the three kernels launched": all(
+        "13a/b: the four kernels launched": all(
             x > 0 for r in (a, b) for x in r["launches"].values()),
         "13b: K_new and fx*b those of cv2.fisheye.stereoRectify": (
             abs(b["K_new"][0][0] - ZED_RECT_F) < 1e-4
@@ -1943,7 +2095,8 @@ def run_vocab_phase(device, raw, gt, grid):
         vecs = torch.stack([bow_vector(vocab, d, v) for d, v in zip(desc, valid)])
         out["vocabularies"][name] = {"words": int(vocab.words.shape[0]), "train_s": secs,
                                      **vocab_metrics(vecs.cpu().numpy(), gt, T)}
-    checks = {"the three kernels launched": all(n > 0 for n in launches.values()),
+    checks = {"the three extraction kernels launched": all(
+                  n > 0 for n in extraction(launches).values()),
               "the tree's words on the card those of the CPU from the same draws":
                   exact["tree_words_equal"] and exact["tree_idf_equal"],
               "the flat words on the card those of the CPU from the same draws, idf "
@@ -1961,6 +2114,171 @@ def run_vocab_phase(device, raw, gt, grid):
                 sep >= 0.9 * ref_sep)
     out["checks_failed"] = [k for k, ok in checks.items() if not ok]
     return out
+
+
+# phase 16: the descriptor modes other than polar through VSLAMTracker, on
+# the first frames of phase 7's room (no new rendering): mono at the
+# reference operating point, chunks of 16, no loop closure (the shipped
+# vocabulary was trained on polar descriptors). Bounds from
+# tools/jax_brief_reference.py (JAX on the CPU, same frames and config).
+BRIEF_MODES = ("binned", "gather", "exact")
+BRIEF_FRAMES = N_INIT + CHUNK * N_CHUNKS
+BRIEF_CONFIG = {
+    "mode": "mono", "keypoints": KEYPOINTS, "levels": LEVELS,
+    "max_keyframes": 128, "max_landmarks": 24576, "chunk_size": CHUNK,
+}
+JAX_BRIEF_REF = {
+    "binned": {"frames": 100, "init_frame": 3, "tracked": 97,
+               "keyframes": 21, "ate_m_sim3": 0.0050940616795309},
+    "gather": {"frames": 100, "init_frame": 3, "tracked": 97,
+               "keyframes": 21, "ate_m_sim3": 0.0050940616795309},
+    "exact": {"frames": 100, "init_frame": 3, "tracked": 97,
+               "keyframes": 21, "ate_m_sim3": 0.005875094909326023},
+}
+
+
+def brief_metrics(engine, gt, fed: int) -> dict:
+    """Frames fed, the first tracked frame (initialization), tracked frames
+    from it on and their share, keyframes, and the Sim3 ATE of the
+    trajectory's camera centres (room_metrics)."""
+    fids = [fid for fid, pose, _ in engine.trajectory if pose is not None]
+    first = min(fids) if fids else fed
+    met = room_metrics(engine, gt) if len(fids) > 2 else {"ate_m": float("inf")}
+    return {"frames": fed, "init_frame": first, "tracked": len(fids),
+            "tracked_after_init": len(fids) / max(fed - first, 1),
+            "keyframes": int(engine.n_keyframes), "ate_m_sim3": met["ate_m"]}
+
+
+def brief_ate_bound(mode: str) -> float:
+    ref = JAX_BRIEF_REF[mode]["ate_m_sim3"]
+    return max(1.5 * ref, ref + 0.02)
+
+
+def brief_card_vs_cpu(img, mode: str) -> dict:
+    """One extraction of a (H, W) card frame in `mode` on the card and on the
+    CPU: level-0 keypoints equal, angles within 5e-4 rad at strong centroids
+    (|m| > 1e3) and < 2% of those keypoints' descriptor bits differing, the
+    bars of tests/test_torch_cuda.py and tests/test_torch_brief_modes.py."""
+    from lpslam_tpu_torch.kernels.orb import (OrbParams, _level_budgets, extract_orb,
+                                              orientation_maps)
+    from lpslam_tpu_torch.kernels.pyramid import build_pyramid, gaussian_blur
+
+    params = OrbParams(KEYPOINTS, LEVELS, brief_mode=mode)
+    got = extract_orb(img, params)
+    want = extract_orb(img.cpu(), params)
+    k0 = _level_budgets(KEYPOINTS, LEVELS, 1.2)[0]
+    xy_g, xy_c = got.xy[:k0].cpu().numpy(), want.xy[:k0].numpy()
+    v_c = want.valid[:k0].numpy()
+    blurred = gaussian_blur(build_pyramid(img.cpu()[None], LEVELS, 1.2)[0], sigma=2.0, radius=3)
+    m10, m01 = (x[0].numpy() for x in orientation_maps(blurred))
+    xi, yi = xy_c.astype(int).T
+    strong = v_c & (np.hypot(m10[yi, xi], m01[yi, xi]) > 1e3)
+    da = np.angle(np.exp(1j * (got.angle[:k0].cpu().numpy() - want.angle[:k0].numpy())))
+    bits = np.unpackbits((got.desc[:k0].cpu().numpy()[strong]
+                          ^ want.desc[:k0].numpy()[strong]).view(np.uint8))
+    out = {"keypoints_equal": bool(np.array_equal(xy_g, xy_c)
+                                   and np.array_equal(got.valid[:k0].cpu().numpy(), v_c)),
+           "strong": int(strong.sum()), "max_angle_diff": float(np.abs(da[strong]).max()),
+           "bits_differing": float(bits.mean())}
+    out["ok"] = (out["keypoints_equal"] and out["strong"] > 100
+                 and out["max_angle_diff"] <= 5e-4 and out["bits_differing"] < 0.02)
+    return out
+
+
+def matchers_card_vs_cpu(device, rectified) -> dict:
+    """match_projected (4096 queries, the keypoints of four frames at their
+    own pixels, against a fifth frame's 1200 keypoints, 15 px window) and
+    match_mutual_nn (two frames) on the card against the same calls on CPU
+    copies of the inputs: the same indices and flags, the distances being
+    exact integers either way. Returns the comparison and the Hamming
+    kernel's launches in the card's calls."""
+    from lpslam_tpu_torch.kernels.match import match_mutual_nn, match_projected
+    from lpslam_tpu_torch.kernels.orb import OrbParams, extract_orb
+
+    f = [extract_orb(rectified(t), OrbParams(KEYPOINTS, LEVELS)) for t in range(5)]
+    n = HAMMING_SIZE[0]
+    q = [torch.cat([getattr(x, k) for x in f[:4]])[:n] for k in ("desc", "xy", "valid")]
+    args = (q + [f[4].desc, f[4].xy, f[4].valid],
+            [f[0].desc, f[4].desc, f[0].valid, f[4].valid])
+
+    def both(on):
+        a_p, a_m = ([x.to(on) for x in a] for a in args)
+        return match_projected(*a_p, 15.0, 80) + match_mutual_nn(*a_m, 50, 0.9)
+
+    want = both("cpu")
+    reset_launches()
+    got = both(device)
+    torch.cuda.synchronize()
+    launches = read_launches()["hamming_matrix"]
+    same = all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+    return {"same": same, "launches": launches, "projected_ok": int(want[1].sum()),
+            "mutual_ok": int(want[3].sum()), "queries": int(q[0].shape[0])}
+
+
+def run_brief_phase(device, raw, gt, K, grid) -> dict:
+    """Phase 16: binned, gather and exact through VSLAMTracker on the room's
+    first BRIEF_FRAMES frames (phase 7's rendering), each with the launch
+    counters reset before it and read after it; one frame's extraction per
+    mode on the card against the CPU; the matchers on the card (the Hamming
+    kernel) against the CPU (its plain version)."""
+    from lpslam_tpu_torch.frontend import TrackerStatus
+    from lpslam_tpu_torch.frontend.device_loop import ChunkedTracker
+    from lpslam_tpu_torch.geometry import PinholeCamera
+    from lpslam_tpu_torch.kernels.remap import remap_bilinear
+    from lpslam_tpu_torch.pipeline import CameraQueueEntry, VSLAMTracker
+
+    raw = raw[:BRIEF_FRAMES]
+    grid_d = torch.from_numpy(grid).to(device)
+
+    def rectified(t):
+        return remap_bilinear(torch.from_numpy(raw[t]).to(device, torch.float32), grid_d)
+
+    cam = PinholeCamera.make(K[0, 0], K[1, 1], K[0, 2], K[1, 2], device=device)
+    res = {"frames": len(raw), "modes": {}}
+    checks = {}
+    for mode in BRIEF_MODES:
+        tracker = VSLAMTracker(cam, dict(BRIEF_CONFIG, brief_mode=mode), device=device)
+        tracker.attach_device_rectify(grid)
+        timed = _Timed(device)
+        timed.wrap(ChunkedTracker, "process_chunk", "chunk")
+        timed.wrap(VSLAMTracker, "_process_host", "host_frame")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            fed = drive_room(tracker, TrackerStatus.TRACKING, CameraQueueEntry, raw, rectified)
+            torch.cuda.synchronize()
+        finally:
+            timed.undo()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        times = timed.summary()
+        extractions = sum(times.get(k, {"n": 0})["n"] for k in ("chunk", "host_frame"))
+        r = {**brief_metrics(tracker.engine, gt, fed), "fps": fed / secs, "seconds": secs,
+             "chunk_ms_median": times.get("chunk", {}).get("median_ms"),
+             "launches": launches, "extractions": extractions}
+        tracker.stop()
+        r["card_vs_cpu"] = brief_card_vs_cpu(rectified(len(raw) // 2), mode)
+        res["modes"][mode] = r
+        per = LEVELS * extractions
+        want = {"fast_nms_score": per, "fast_lo_max": per,
+                "extract_patches": per if mode == "binned" else 0}
+        checks[f"{mode}: tracked after init >= 0.9"] = r["tracked_after_init"] >= 0.9
+        checks[f"{mode}: Sim3 ATE < 0.10 m"] = r["ate_m_sim3"] < 0.10
+        if JAX_BRIEF_REF is not None:
+            checks[f"{mode}: ATE <= {brief_ate_bound(mode):.4f} m (JAX "
+                   f"{JAX_BRIEF_REF[mode]['ate_m_sim3']:.4f})"] = (
+                r["ate_m_sim3"] <= brief_ate_bound(mode))
+        checks[f"{mode}: launches {want}"] = extraction(launches) == want
+        checks[f"{mode}: the Hamming kernel launched"] = launches["hamming_matrix"] > 0
+        checks[f"{mode}: card descriptors against the CPU's"] = r["card_vs_cpu"]["ok"]
+    res["matching"] = matchers_card_vs_cpu(device, rectified)
+    checks["the matchers on the card give the CPU's indices and flags"] = (
+        res["matching"]["same"])
+    checks["the Hamming kernel once per matcher call on the card (2)"] = (
+        res["matching"]["launches"] == 2)
+    res["checks_failed"] = [k for k, ok in checks.items() if not ok]
+    return res
 
 
 # phase 15: native/ and dist/ on the card. No new frames: phase 7's room map
@@ -2292,7 +2610,7 @@ def main() -> int:
         raise AssertionError("TF32 must be off")
 
     t0 = time.perf_counter()
-    sources = ["patch.cu", "fast_nms.cu"]
+    sources = ["patch.cu", "fast_nms.cu", "hamming.cu"]
     with ThreadPoolExecutor(1) as ex:      # g++ for the native module beside nvcc
         native_build = ex.submit(native.get_native)
         _cuda.load_libraries(sources)
@@ -2307,6 +2625,9 @@ def main() -> int:
     t0 = time.perf_counter()
     records["fast_nms_score"], records["fast_lo_max"] = check_fast_kernel(device)
     print(f"phase 3b: FAST+NMS kernels checked in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    records["hamming_matrix"] = check_hamming_kernel(device)
+    print(f"phase 3c: Hamming kernel checked in {time.perf_counter() - t0:.1f} s")
 
     paths = [("4", "mono", dict()),
              ("5", "stereo", dict(n_chunks=STEREO_CHUNKS, ate_bound=ate_bound("stereo"))),
@@ -2575,6 +2896,29 @@ def main() -> int:
           f"{res['world1']['sgba']['final_cost']:.2f} / {w2['sgba']['final_cost']:.2f}; "
           f"{time.perf_counter() - t0:.1f} s, on {card}")
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    t0 = time.perf_counter()
+    res = run_brief_phase(device, raw, gt, K, grid)
+    for r in res["modes"].values():
+        for name, n in r["launches"].items():
+            records[name]["launches"] += n
+    failed += [f"phase 16: {x}" for x in res["checks_failed"]]
+    print("brief modes: " + json.dumps(res))
+    for mode, r in res["modes"].items():
+        cvc = r["card_vs_cpu"]
+        print(f"phase 16 {mode}: {r['frames']} frames, init at {r['init_frame']}, tracked "
+              f"after init {r['tracked_after_init']:.3f}, {r['keyframes']} keyframes, Sim3 ATE "
+              f"{r['ate_m_sim3']:.4f} m, {r['fps']:.2f} frames/s, launches {r['launches']} over "
+              f"{r['extractions']} extractions; card vs CPU: keypoints equal "
+              f"{cvc['keypoints_equal']}, angle <= {cvc['max_angle_diff']:.2e} rad, "
+              f"{100 * cvc['bits_differing']:.2f}% bits")
+    m = res["matching"]
+    print(f"phase 16: matchers on the card equal to the CPU's: {m['same']} ({m['queries']} "
+          f"queries, {m['projected_ok']} projected and {m['mutual_ok']} mutual matches), "
+          f"Hamming kernel launches {m['launches']}; {time.perf_counter() - t0:.1f} s, on {card}")
+    # every kernel of the main paths ran in them
+    failed += [f"{name}: no launch on the main paths"
+               for name, r in records.items() if r["launches"] == 0]
     if failed:
         raise AssertionError(f"checks failed: {failed}")
     print(f"all phases: {time.perf_counter() - t_all:.1f} s")

@@ -3,12 +3,16 @@ lpslam_tpu/dist/mesh.py), and a launcher that runs a function on a world of
 spawned processes.
 
 JAX drives a ``Mesh`` of devices from one process; here every rank is its
-own process in a process group (NCCL on the card, gloo on the CPU). A
+own process in a process group (NCCL on the card, gloo on the CPU when the
+caller asks for the CPU). A
 ``Mesh`` wraps the ``DeviceMesh`` of ``init_device_mesh`` and its two
 collectives: ``all_reduce`` (SUM, JAX's ``psum``) and ``all_gather`` (the
 ranks' blocks concatenated along dim 0, what ``out_specs=P(axis)``
 reassembles). With no process group initialized the mesh is a world of one
-on the caller's device, and both collectives return their input.
+on the caller's device, and both collectives return their input. The device
+defaults to this process's card; with no card that raises, and the CPU is
+used only where a caller passes ``device="cpu"`` (``backend="gloo"`` for a
+world of processes).
 
 ``run_world(fn, n, *args)`` starts n processes (spawn), joins them in a
 process group through a file in a temporary directory (so concurrent worlds
@@ -65,18 +69,21 @@ class Mesh:
         return slice(self.rank * blk, (self.rank + 1) * blk)
 
 
-def _default_device() -> torch.device:
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def _require_card(what: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} runs on a CUDA card and there is none here; "
+                           "pass device='cpu' (and backend='gloo') to run on the CPU")
 
 
 def make_mesh(n_devices: Optional[int] = None, axis_name: str = "obs",
               device=None) -> Mesh:
     """The mesh over the initialized process group (every rank of it), or a
     world of one when there is none. ``device`` defaults to this process's
-    card, or the CPU where there is no card."""
-    device = torch.device(device) if device is not None else _default_device()
+    card; without a card that raises unless ``device="cpu"`` is passed."""
+    if device is None:
+        _require_card("make_mesh")
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
     if not dist.is_initialized():
         if n_devices not in (None, 1):
             raise ValueError(
@@ -98,15 +105,17 @@ def default_mesh() -> Mesh:
 
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> None:
+                     process_id: Optional[int] = None,
+                     backend: str = "nccl") -> None:
     """Join this process to a world of ``num_processes`` ranks whose
     rendezvous is ``coordinator_address`` ("host:port"): NCCL with one card
-    per rank where there are cards, gloo without. A no-op for one process."""
+    per rank, or gloo on the CPU when ``backend="gloo"`` is passed. NCCL
+    without a card raises. A no-op for one process."""
+    if backend == "nccl":
+        _require_card("init_distributed (nccl)")
     if num_processes is None or num_processes <= 1:
         return
-    backend = "gloo"
-    if torch.cuda.is_available():
-        backend = "nccl"
+    if backend == "nccl":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                             rank=process_id, world_size=num_processes)
@@ -128,12 +137,15 @@ def _rank_main(fn, rank, n, init_method, backend, device, args, out):
             dist.destroy_process_group()
 
 
-def run_world(fn, n: int, *args, backend: str = "gloo", device="cpu",
+def run_world(fn, n: int, *args, backend: str = "nccl", device="cuda",
               timeout: float = 900.0) -> list:
     """``fn(mesh, *args)`` on every rank of a new world of ``n`` spawned
-    processes; returns the ranks' results in rank order. A rank that raises
-    makes this raise with its traceback; every process is stopped before
-    this returns."""
+    processes; returns the ranks' results in rank order. On the card by
+    default (NCCL); ``backend="gloo", device="cpu"`` runs it on the CPU.
+    A rank that raises makes this raise with its traceback; every process
+    is stopped before this returns."""
+    if backend == "nccl" or torch.device(device).type == "cuda":
+        _require_card(f"run_world ({backend}, {device})")
     ctx = multiprocessing.get_context("spawn")
     results = {}
     with tempfile.TemporaryDirectory() as tmp:

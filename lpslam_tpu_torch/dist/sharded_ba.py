@@ -115,9 +115,10 @@ def _dba_impl(prob: BAProblem, cam: PinholeCamera, iters: int, mesh: Mesh) -> BA
 def distributed_bundle_adjust(prob: BAProblem, cam: PinholeCamera,
                               mesh: Optional[Mesh] = None, iters: int = 10) -> BAResult:
     """BA with the observation-slot axis sharded across the mesh. Slots are
-    padded to a multiple of the mesh size (obs_lm = -1: they cost nothing)."""
+    padded to a multiple of the mesh size (obs_lm = -1: they cost nothing).
+    With no mesh, a world of one on the device the problem lies on."""
     if mesh is None:
-        mesh = make_mesh()
+        mesh = make_mesh(device=prob.obs_lm.device)
     C, N = prob.obs_lm.shape
     pad = -N % mesh.size
     if pad:

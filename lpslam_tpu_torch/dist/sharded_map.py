@@ -218,9 +218,10 @@ def sharded_global_ba_problem(prob: BAProblem, cam: PinholeCamera,
                               cg_iters: int = 15) -> BAResult:
     """Global BA with the keyframe axis sharded across the mesh. The camera
     axis is padded to a multiple of the mesh size with fixed cameras that
-    observe nothing; the result keeps the padding."""
+    observe nothing; the result keeps the padding. With no mesh, a world of
+    one on the device the problem lies on."""
     if mesh is None:
-        mesh = make_mesh()
+        mesh = make_mesh(device=prob.obs_lm.device)
     C, N = prob.obs_lm.shape
     pad = -C % mesh.size
     if pad:
@@ -280,9 +281,10 @@ def _bow_scores_local(db_loc, query, mesh: Mesh):
 def sharded_bow_scores(db, query, mesh: Optional[Mesh] = None):
     """Loop-candidate scores with the keyframe axis of the BoW database
     sharded across the mesh: each rank scores its block against the
-    replicated query, and only the (K,) scores are gathered."""
+    replicated query, and only the (K,) scores are gathered. With no mesh,
+    a world of one on the device the database lies on."""
     if mesh is None:
-        mesh = make_mesh()
+        mesh = make_mesh(device=db.device)
     K = db.shape[0]
     pad = -K % mesh.size
     if pad:

@@ -10,8 +10,8 @@ relocalization) with undistortion or rectification in the frame path
 (RectifyProcessor, the grids on the device), aligns the trajectory with the
 ground truth and prints one JSON line: ATE RMSE (Sim3 for mono, without
 scale otherwise) and frames/s. `--bench room` is the ray-cast room of
-io/benchmark.py. `--brief-mode` accepts "polar" only (the descriptor
-ablations stay in the JAX package).
+io/benchmark.py. `--brief-mode` picks the descriptor path (polar, binned,
+gather, exact: kernels/orb.py).
 """
 from __future__ import annotations
 
@@ -102,7 +102,8 @@ def main(argv=None):
     p.add_argument("--mode", default="mono", choices=["mono", "stereo", "rgbd"])
     p.add_argument("--keypoints", type=int, default=1200)
     p.add_argument("--levels", type=int, default=3)
-    p.add_argument("--brief-mode", default="polar", dest="brief_mode", choices=["polar"])
+    p.add_argument("--brief-mode", default="polar", dest="brief_mode",
+                   choices=["polar", "binned", "gather", "exact"])
     p.add_argument("--frames", type=int, default=0, dest="max_frames")
     p.add_argument("--max-keyframes", type=int, default=128)
     p.add_argument("--max-landmarks", type=int, default=24576)

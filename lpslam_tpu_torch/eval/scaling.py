@@ -41,11 +41,15 @@ NVLINK4_SOURCE = ("datasheet, not a measurement: NVIDIA H100 SXM, fourth-generat
                   "NVLink, 900 GB/s per GPU in both directions together, 450 GB/s each way")
 
 
-def build_problem(C: int, Pn: int, N: int, seed: int = 0, device="cpu"):
+def build_problem(C: int, Pn: int, N: int, seed: int = 0, device="cuda"):
     """The JAX tool's problem: C cameras on a loop around Pn landmarks, N
-    observation slots each, 0.4 px noise, perturbed poses and points."""
+    observation slots each, 0.4 px noise, perturbed poses and points, on
+    ``device`` (the card unless the caller passes "cpu"; no card raises)."""
     from ..backend.ba import BAProblem
     from ..geometry.se3 import se3_exp
+    from ..pipeline.manager import require_device
+
+    device = require_device(device)
 
     rng = np.random.default_rng(seed)
     pts = np.stack(

@@ -4,6 +4,7 @@ from .patch import extract_patches
 from .fast_nms import fast_nms_score
 from .orb import extract_orb, OrbFeatures, OrbParams
 from .match import (
+    hamming_matrix,
     hamming_matrix_mxu,
     match_mutual_nn,
     match_projected,

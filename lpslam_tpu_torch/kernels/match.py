@@ -1,20 +1,35 @@
 """Binary-descriptor matching (port of lpslam_tpu/kernels/match.py).
 
-The Hamming matrix is the JAX package's ±1 product: d = (256 - a·b) / 2 over
-unpacked {-1, +1} descriptors. It runs as an fp32 matmul, which is exact
-because every partial sum is an integer of magnitude <= 256. Row/column
-argmins pick the lowest index on ties, as jnp.argmin does.
+The matchers' distances come from ``hamming_matrix``: XOR and popcount of
+the packed words, int32. On the card it is the hand-written CUDA kernel
+(csrc/hamming.cu), on the CPU its plain version
+(``hamming_matrix_reference``, a SWAR popcount); any other device
+raises. There is no fallback. The JAX package's default form,
+``hamming_matrix_mxu`` (the ±1 product d = (256 - a·b) / 2 as an fp32
+matmul, exact because every partial sum is an integer of magnitude <= 256),
+gives the same integers; it stays as an export and as the tests' yardstick,
+so the matchers take the same pairs as JAX's with either ``use_mxu``.
+Row/column argmins pick the lowest index on ties, as jnp.argmin does.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
+from .. import _cuda
 from .fast import topk_stable
 
 BITS = 256
 WORDS = 8
 BIG = 1e9
+SOURCE = "hamming.cu"
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_MAX_ROWS = 65535 * 32      # the kernel's grid.y limit times its rows per block
+
+# kernel launches made by hamming_matrix_cuda since the last reset
+LAUNCHES = 0
 
 
 def _unpack_pm1(desc):
@@ -31,11 +46,90 @@ def hamming_matrix_mxu(desc_a, desc_b):
     return (BITS - dot) * 0.5
 
 
+_REF_PAIRS = 1 << 18    # pairs per block of the plain version: 8 MB of bytes
+
+
+def _popcount_block(desc_a, desc_b):
+    """(na, 8) x (nb, 8) int32 -> (na, nb) int32: XOR of the 32 bytes, a
+    SWAR popcount in each byte, then the byte counts summed through int64
+    views of 8 bytes (every sum stays below 2^63, so nothing overflows)."""
+    x = desc_a.view(torch.uint8)[:, None, :] ^ desc_b.view(torch.uint8)[None, :, :]
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    x = (x + (x >> 4)) & 0x0F                            # each byte: its popcount
+    w = x.view(torch.int64)                              # (na, nb, 4) of 8 counts
+    s = w[..., 0] + w[..., 1] + w[..., 2] + w[..., 3]    # each byte <= 32
+    s = (s & 0x00FF00FF00FF00FF) + ((s >> 8) & 0x00FF00FF00FF00FF)
+    s = (s & 0x0000FFFF0000FFFF) + ((s >> 16) & 0x0000FFFF0000FFFF)
+    return ((s & 0xFFFFFFFF) + (s >> 32)).to(torch.int32)
+
+
+def hamming_matrix_reference(desc_a, desc_b):
+    """(Na, 8) x (Nb, 8) int32 bit patterns -> (Na, Nb) int32 Hamming
+    distances, by blocks of rows of desc_a (see _popcount_block)."""
+    desc_a, desc_b = desc_a.contiguous(), desc_b.contiguous()
+    rows = max(1, _REF_PAIRS // max(desc_b.shape[0], 1))
+    if desc_a.shape[0] <= rows:
+        return _popcount_block(desc_a, desc_b)
+    return torch.cat([_popcount_block(desc_a[i:i + rows], desc_b)
+                      for i in range(0, desc_a.shape[0], rows)])
+
+
+def _check_cuda_args(desc_a, desc_b):
+    if desc_a.device.type != "cuda" or desc_b.device != desc_a.device:
+        raise ValueError("hamming_matrix_cuda needs both tensors on one CUDA device")
+    if desc_a.dtype != torch.int32 or desc_b.dtype != torch.int32:
+        raise TypeError("hamming_matrix_cuda takes int32 bit patterns")
+    if not (desc_a.is_contiguous() and desc_b.is_contiguous()):
+        raise ValueError("hamming_matrix_cuda takes contiguous tensors")
+    if desc_a.dim() != 2 or desc_b.dim() != 2 or desc_a.shape[1] != WORDS \
+            or desc_b.shape[1] != WORDS:
+        raise ValueError(f"shapes {tuple(desc_a.shape)} / {tuple(desc_b.shape)}: "
+                         f"want (Na, {WORDS}) / (Nb, {WORDS})")
+    if desc_a.shape[0] > _MAX_ROWS:
+        raise ValueError(f"at most {_MAX_ROWS} rows of desc_a")
+
+
+def launch_hamming(desc_a, desc_b, out):
+    """Launch the kernel on checked, non-empty tensors into ``out`` (Na, Nb);
+    the one place that counts a launch."""
+    global LAUNCHES
+    fn = _cuda.entry(SOURCE, "lpslam_hamming", _ARGTYPES)
+    _cuda.launch(fn, desc_a.device, desc_a.data_ptr(), desc_b.data_ptr(), out.data_ptr(),
+                 desc_a.shape[0], desc_b.shape[0])
+    LAUNCHES += 1
+
+
+def hamming_matrix_cuda(desc_a, desc_b):
+    """The CUDA kernel: (Na, 8) and (Nb, 8) int32 contiguous tensors on one
+    CUDA device -> (Na, Nb) int32. Launches nothing when Na or Nb is 0."""
+    _check_cuda_args(desc_a, desc_b)
+    out = torch.empty((desc_a.shape[0], desc_b.shape[0]), dtype=torch.int32,
+                      device=desc_a.device)
+    if out.numel():
+        launch_hamming(desc_a, desc_b, out)
+    return out
+
+
+def hamming_matrix(desc_a, desc_b):
+    """(Na, 8) x (Nb, 8) descriptors -> (Na, Nb) int32 Hamming distances;
+    see the module docstring for which version runs."""
+    if desc_a.device.type == "cpu":
+        return hamming_matrix_reference(desc_a, desc_b)
+    if desc_a.device.type == "cuda":
+        return hamming_matrix_cuda(desc_a.contiguous(), desc_b.contiguous())
+    raise ValueError(f"no Hamming matrix for device {desc_a.device}")
+
+
+def _distances(desc_a, desc_b):
+    return hamming_matrix(desc_a, desc_b).to(torch.float32)
+
+
 def match_mutual_nn(desc_a, desc_b, valid_a, valid_b,
                     max_distance: int = 50, ratio: float = 0.9):
     """Mutual nearest neighbours with Lowe-ratio and distance gates.
     Returns (idx_b (Na,) int64, ok (Na,) bool)."""
-    D = hamming_matrix_mxu(desc_a, desc_b)
+    D = _distances(desc_a, desc_b)
     D = torch.where(valid_a[:, None] & valid_b[None, :], D, BIG)
     best_b = torch.argmin(D, dim=1)
     rows = torch.arange(D.shape[0], device=D.device)
@@ -53,7 +147,7 @@ def match_projected(desc_q, uv_q, valid_q, desc_kp, uv_kp, valid_kp,
                     radius, max_distance: int = 80):
     """Match queries (projected landmarks) against frame keypoints inside a
     pixel window. Returns (idx (Nq,) int64, ok (Nq,) bool)."""
-    D = hamming_matrix_mxu(desc_q, desc_kp)
+    D = _distances(desc_q, desc_kp)
     d2px = torch.sum((uv_q[:, None, :] - uv_kp[None, :, :]) ** 2, dim=-1)
     in_window = d2px <= radius * radius
     D = torch.where(in_window & valid_q[:, None] & valid_kp[None, :], D, BIG)

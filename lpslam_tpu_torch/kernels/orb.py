@@ -1,11 +1,22 @@
-"""ORB feature extraction, polar-BRIEF path, batched over frames
-(port of lpslam_tpu/kernels/orb.py).
+"""ORB feature extraction, batched over frames (port of
+lpslam_tpu/kernels/orb.py).
 
 Per pyramid level: two FAST score maps blended and non-max suppressed, grid
-top-k keypoints, a 7-tap Gaussian blur, one 32x32 patch per keypoint
-(kernels/patch.py — the CUDA kernel on the GPU), the disc-moment orientation
-and the 256-bit polar-derotation BRIEF. The tables come from copies of the
-JAX package's numpy builders and are bit-equal to its tables.
+top-k keypoints, a 7-tap Gaussian blur, then the descriptor path of
+``OrbParams.brief_mode``:
+- "polar" (default): one 32x32 patch per keypoint (kernels/patch.py — the
+  CUDA kernel on the GPU), the disc-moment orientation and the 256-bit
+  polar-derotation BRIEF;
+- "binned", "gather", "exact": the angle from whole-image moment maps
+  (``orientation_maps``) read at the truncated keypoint, then the 12-degree
+  binned pattern sampled from the keypoint's patch (binned, the patch kernel
+  again) or from the image (gather), or the pattern rotated by the exact
+  angle (exact).
+``OrbParams.pallas_patches`` is "auto" or "on": both take the CUDA patch
+kernel on the card and its plain version on the CPU, where "on" raises.
+There is no "off": nothing routes card tensors to the plain gather. The
+tables come from copies of the JAX package's numpy builders and are
+bit-equal to its tables.
 
 The FAST score (kernels/fast_nms.py — the CUDA kernels on the GPU) has the
 JAX package's two forms. By default it is the composite's (``fast_score``
@@ -13,9 +24,7 @@ x2, a blend whose low-threshold ceiling follows the frame's max score,
 ``nms3x3``). ``OrbParams(use_pallas=True)`` takes the fused kernel's form
 instead, whose ceiling is fixed; the depth trackers run it.
 
-Only ``brief_mode="polar"`` is ported; the binned/gather/exact modes stay in
-the reference. Descriptors are (N, 8) 32-bit words stored as int32 bit
-patterns.
+Descriptors are (N, 8) 32-bit words stored as int32 bit patterns.
 """
 from __future__ import annotations
 
@@ -47,6 +56,8 @@ class OrbParams(NamedTuple):
     fast_min_threshold: float = 7.0
     cell: int = 16
     use_pallas: bool = False  # the fused FAST+NMS form (fixed ceiling)
+    brief_mode: str = "polar"  # "polar" | "binned" | "gather" | "exact"
+    pallas_patches: str = "auto"  # "auto" | "on": see the module docstring
 
 
 class OrbFeatures(NamedTuple):
@@ -114,6 +125,50 @@ def _polar_tables():
     return sel, C, S, itap, flat_ref.astype(np.int32)
 
 
+def _disc_half_heights(radius: int = PATCH_RADIUS):
+    """For each column offset dx of the disc, the max |dy| inside the circle."""
+    dxs = np.arange(-radius, radius + 1)
+    rys = np.floor(np.sqrt(np.maximum(radius * radius - dxs * dxs, 0))).astype(int)
+    return list(zip(dxs.tolist(), rys.tolist()))
+
+
+def _binned_sample_matrices():
+    """(BINS, 1024, 512) one-hot selection: patch pixels -> 512 sample values
+    (first 256 columns = point p of each pair, last 256 = point q). The JAX
+    package's table; the port keeps only its argmax per column (_BIN_PIX)."""
+    mats = np.zeros((N_ANGLE_BINS, _PATCH * _PATCH, 512), np.float32)
+    pat = BRIEF_PATTERN
+    for b in range(N_ANGLE_BINS):
+        th = b * 2 * np.pi / N_ANGLE_BINS - np.pi
+        R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        rot = pat @ R.T
+        ix = np.clip(np.round(rot[..., 0]).astype(int), -_PB, _PB - 1) + _PB
+        iy = np.clip(np.round(rot[..., 1]).astype(int), -_PB, _PB - 1) + _PB
+        flat = iy * _PATCH + ix
+        for pair in range(256):
+            mats[b, flat[pair, 0], pair] = 1.0
+            mats[b, flat[pair, 1], 256 + pair] = 1.0
+    return mats
+
+
+def _binned_offset_table():
+    """(BINS, 512, 2) int32 (dy, dx) tap offsets of the quantized rotated
+    pattern (first 256 = point p, last 256 = point q)."""
+    pat = BRIEF_PATTERN
+    offs = np.zeros((N_ANGLE_BINS, 512, 2), np.int32)
+    for b in range(N_ANGLE_BINS):
+        th = b * 2 * np.pi / N_ANGLE_BINS - np.pi
+        R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        rot = pat @ R.T
+        ix = np.clip(np.round(rot[..., 0]).astype(int), -_PB, _PB - 1)
+        iy = np.clip(np.round(rot[..., 1]).astype(int), -_PB, _PB - 1)
+        offs[b, :256, 0] = iy[:, 0]
+        offs[b, :256, 1] = ix[:, 0]
+        offs[b, 256:, 0] = iy[:, 1]
+        offs[b, 256:, 1] = ix[:, 1]
+    return offs
+
+
 def _mom_weights():
     dxg, dyg = np.meshgrid(np.arange(-_PB, _PB), np.arange(-_PB, _PB))
     disc = (dxg**2 + dyg**2) <= PATCH_RADIUS**2
@@ -129,6 +184,13 @@ _BIT_WEIGHTS = (1 << np.arange(32)).astype(np.uint32)
 # POLAR_SEL is one-hot per column: the patch pixel each polar sample reads.
 # Gathering it gives exactly the fp32 one-hot product of the JAX package.
 _POLAR_PIX = np.argmax(_POLAR_SEL, axis=0).astype(np.int64)
+_DISC_COLS = _disc_half_heights()
+_OFFSET_TABLE = _binned_offset_table()
+# the binned one-hot matrices (63 MB) as the patch pixel each of a bin's 512
+# samples reads: the argmax of each column, (BINS, 512), built from the
+# offsets the matrices are built from. Gathering it gives exactly the JAX
+# package's fp32 one-hot product, without the (N, 30, 512) intermediate.
+_BIN_PIX = ((_OFFSET_TABLE[..., 0] + _PB) * _PATCH + _OFFSET_TABLE[..., 1] + _PB).astype(np.int64)
 
 _DEVICE_TABLES: dict = {}
 
@@ -140,7 +202,9 @@ def _tables(device):
             name: torch.from_numpy(np.ascontiguousarray(arr)).to(device)
             for name, arr in (
                 ("pix", _POLAR_PIX), ("C", _DFT_C), ("S", _DFT_S),
-                ("itap", _ITAP), ("mom", _MOM_W),
+                ("itap", _ITAP), ("mom", _MOM_W), ("bin_pix", _BIN_PIX),
+                ("offsets", _OFFSET_TABLE.astype(np.int64)), ("pattern", BRIEF_PATTERN),
+                ("ref_idx", _POLAR_REF_IDX.astype(np.int64)),
             )
         }
     return _DEVICE_TABLES[key]
@@ -199,9 +263,149 @@ def polar_brief_from_patches(patches, angle):
     return pack_bits(vals[..., :256] < vals[..., 256:])
 
 
+def steered_brief_polar(blurred, xy, angle):
+    """Polar-derotation BRIEF from (B, H, W) level images, (B, N, 2)
+    keypoints and (B, N) angles."""
+    return polar_brief_from_patches(extract_patches(blurred, xy), angle)
+
+
+def polar_tap_values_reference(patches, angle):
+    """Exact-shift tap values of the polar descriptor (tests only): (..., 512)
+    samples of the polar grid, taps [0:256] point p and [256:512] point q of
+    each pair, the polar path's semantics without the DFT round trip."""
+    tb = _tables(patches.device)
+    pol = patches[..., tb["pix"]]
+    return torch.gather(pol, -1, tb["ref_idx"][_bin_of(angle)])
+
+
+def polar_brief_reference(patches, angle):
+    """Exact-shift reference descriptor (tests only). Pairs whose two taps are
+    exactly equal give an arbitrary bit here, where the DFT path decides them
+    by ~1e-5 reconstruction noise: compare with a tie mask."""
+    vals = polar_tap_values_reference(patches, angle)
+    return pack_bits(vals[..., :256] < vals[..., 256:])
+
+
+# ---------------------------------------------------------------------------
+# The moment-map descriptor paths (brief_mode binned / gather / exact)
+# ---------------------------------------------------------------------------
+
+
+def orientation_maps(img):
+    """Whole-image intensity-centroid moments (m10, m01) per pixel of
+    (..., H, W) images, over the radius-15 disc as a stack of columns: each
+    column sum is a vertical box filter (a cumulative sum read at two
+    clamped rows), so
+        m10 = sum_dx dx * roll_x(vbox_{ry(dx)}(I), -dx)
+        m01 = sum_dy dy * roll_y(hbox_{rx(dy)}(I), -dy)
+    with the JAX package's wrap-around rolls and clamped box edges, summed in
+    its order."""
+    h, w = img.shape[-2:]
+    lead = img.shape[:-2]
+    cv = torch.cat([img.new_zeros((*lead, 1, w)), torch.cumsum(img, dim=-2)], dim=-2)
+    ch = torch.cat([img.new_zeros((*lead, h, 1)), torch.cumsum(img, dim=-1)], dim=-1)
+    ys = torch.arange(h, device=img.device)
+    xs = torch.arange(w, device=img.device)
+
+    def vbox(r):
+        top = torch.clamp(ys - r, 0, h)
+        bot = torch.clamp(ys + r + 1, 0, h)
+        return cv[..., bot, :] - cv[..., top, :]
+
+    def hbox(r):
+        left = torch.clamp(xs - r, 0, w)
+        right = torch.clamp(xs + r + 1, 0, w)
+        return ch[..., right] - ch[..., left]
+
+    m10 = torch.zeros_like(img)
+    m01 = torch.zeros_like(img)
+    vcache, hcache = {}, {}
+    for dx, ry in _DISC_COLS:
+        if dx == 0:
+            continue
+        if ry not in vcache:
+            vcache[ry] = vbox(ry)
+        m10 = m10 + dx * torch.roll(vcache[ry], -dx, dims=-1)
+    for dy, rx in _DISC_COLS:  # the circle is symmetric: the same table
+        if dy == 0:
+            continue
+        if rx not in hcache:
+            hcache[rx] = hbox(rx)
+        m01 = m01 + dy * torch.roll(hcache[rx], -dy, dims=-2)
+    return m10, m01
+
+
+def _map_angle(m10_map, m01_map, xy):
+    """Angles of (B, N, 2) keypoints from (B, H, W) moment maps, read at the
+    truncated (not rounded) pixel, the flat index clamped as a JAX gather
+    clamps it."""
+    b, h, w = m10_map.shape
+    idx = xy[..., 1].to(torch.int64) * w + xy[..., 0].to(torch.int64)
+    idx = torch.clamp(idx, 0, h * w - 1)
+    m10 = torch.gather(m10_map.reshape(b, -1), 1, idx)
+    m01 = torch.gather(m01_map.reshape(b, -1), 1, idx)
+    return torch.atan2(m01, m10)
+
+
+def _binned_from_patches(patches, angle):
+    vals = torch.gather(patches, -1, _tables(patches.device)["bin_pix"][_bin_of(angle)])
+    return pack_bits(vals[..., :256] < vals[..., 256:])
+
+
+def steered_brief_binned(blurred, xy, angle):
+    """Angle-binned steered BRIEF (12-degree bins, the classic ORB trick):
+    the 32x32 patch of each keypoint (kernels/patch.py: rounded centre,
+    corner clamped to the level), sampled at its bin's 512 pattern pixels.
+    (B, H, W), (B, N, 2), (B, N) -> (B, N, 8)."""
+    return _binned_from_patches(extract_patches(blurred, xy), angle)
+
+
+def steered_brief_gather(blurred, xy, angle):
+    """The binned pattern sampled straight from the image: one flat 512-tap
+    gather per keypoint around its rounded centre, clamped to
+    [16, size - 17]. (B, H, W), (B, N, 2), (B, N) -> (B, N, 8)."""
+    b, h, w = blurred.shape
+    n = xy.shape[1]
+    offs = _tables(blurred.device)["offsets"][_bin_of(angle)]      # (B, N, 512, 2)
+    cx = torch.clamp(torch.round(xy[..., 0]).to(torch.int64), _PB, w - _PB - 1)
+    cy = torch.clamp(torch.round(xy[..., 1]).to(torch.int64), _PB, h - _PB - 1)
+    flat = (cy[..., None] + offs[..., 0]) * w + cx[..., None] + offs[..., 1]
+    vals = torch.gather(blurred.reshape(b, -1), 1, flat.reshape(b, -1)).reshape(b, n, 512)
+    return pack_bits(vals[..., :256] < vals[..., 256:])
+
+
+def steered_brief(blurred, xy, angle):
+    """Steered BRIEF at the exact angle: the pattern rotated per keypoint,
+    each tap rounded and clamped to the image. (B, H, W), (B, N, 2), (B, N)
+    -> (B, N, 8)."""
+    b, h, w = blurred.shape
+    n = xy.shape[1]
+    ca, sa = torch.cos(angle), torch.sin(angle)
+    R = torch.stack([torch.stack([ca, -sa], -1), torch.stack([sa, ca], -1)], dim=-2)
+    rotated = torch.einsum("bnij,pqj->bnpqi", R, _tables(blurred.device)["pattern"])
+    pos = xy[:, :, None, None, :] + rotated                         # (B, N, 256, 2, 2)
+    px = torch.clamp(torch.round(pos[..., 0]).to(torch.int64), 0, w - 1)
+    py = torch.clamp(torch.round(pos[..., 1]).to(torch.int64), 0, h - 1)
+    vals = torch.gather(blurred.reshape(b, -1), 1, (py * w + px).reshape(b, -1))
+    vals = vals.reshape(b, n, 256, 2)
+    return pack_bits(vals[..., 0] < vals[..., 1])
+
+
 # ---------------------------------------------------------------------------
 # Full extraction
 # ---------------------------------------------------------------------------
+
+BRIEF_MODES = ("polar", "binned", "gather", "exact")
+
+
+def _patches(blurred, xy, pallas_patches: str):
+    """The keypoints' patches by OrbParams.pallas_patches: "auto" dispatches
+    on the device, "on" needs the CUDA kernel."""
+    if pallas_patches not in ("auto", "on"):
+        raise ValueError(f"unknown pallas_patches {pallas_patches!r}")
+    if pallas_patches == "on" and blurred.device.type != "cuda":
+        raise ValueError("pallas_patches='on' runs the CUDA patch kernel: needs CUDA tensors")
+    return extract_patches(blurred, xy)
 
 
 def _level_budgets(n: int, num_levels: int, scale: float):
@@ -216,6 +420,8 @@ def extract_orb(img, params: OrbParams = OrbParams()) -> OrbFeatures:
     """(H, W) or (B, H, W) float32 [0, 255] images -> OrbFeatures with
     N = params.num_keypoints slots per frame (leading B axis when batched).
     Runs on the device the images lie on."""
+    if params.brief_mode not in BRIEF_MODES:
+        raise ValueError(f"unknown brief_mode {params.brief_mode!r}")
     if img.dim() == 2:
         return OrbFeatures(*(f[0] for f in extract_orb(img[None], params)))
     levels = build_pyramid(img, params.num_levels, params.scale_factor)
@@ -235,9 +441,20 @@ def extract_orb(img, params: OrbParams = OrbParams()) -> OrbFeatures:
             score, k_lvl, cell=params.cell, border=EDGE_MARGIN
         )
         blurred = gaussian_blur(level_img, sigma=2.0, radius=3)
-        patches = extract_patches(blurred, xy)
-        angle = patch_orientation(patches)
-        desc = polar_brief_from_patches(patches, angle)
+        if params.brief_mode == "polar":
+            # one patch per keypoint feeds the disc-moment angle and the
+            # polar descriptor
+            patches = _patches(blurred, xy, params.pallas_patches)
+            angle = patch_orientation(patches)
+            desc = polar_brief_from_patches(patches, angle)
+        else:
+            angle = _map_angle(*orientation_maps(blurred), xy)
+            if params.brief_mode == "binned":
+                desc = _binned_from_patches(_patches(blurred, xy, params.pallas_patches), angle)
+            elif params.brief_mode == "gather":
+                desc = steered_brief_gather(blurred, xy, angle)
+            else:
+                desc = steered_brief(blurred, xy, angle)
         scale_l = torch.tensor(
             params.scale_factor**lvl, dtype=torch.float32, device=img.device
         )

@@ -1,7 +1,8 @@
 """Rectified stereo keypoint matching and disparity refinement (port of
 lpslam_tpu/kernels/stereo.py).
 
-A dense masked Hamming matrix between the left and right keypoint sets,
+A dense masked Hamming matrix (kernels/match.py::hamming_matrix, the CUDA
+kernel on the card) between the left and right keypoint sets,
 with the row and disparity constraints as masks, then mutual-best argmins.
 Both argmins take the lowest index on ties, as ``jnp.argmin`` does.
 """
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .match import BIG, hamming_matrix_mxu
+from .match import BIG, hamming_matrix
 
 
 def match_stereo(desc_l, uv_l, valid_l, desc_r, uv_r, valid_r,
@@ -18,7 +19,7 @@ def match_stereo(desc_l, uv_l, valid_l, desc_r, uv_r, valid_r,
     """For each left keypoint, its right partner on the same rectified row.
 
     Returns (disparity (Nl,) = u_l - u_r, idx_r (Nl,) int32, ok (Nl,))."""
-    D = hamming_matrix_mxu(desc_l, desc_r)
+    D = hamming_matrix(desc_l, desc_r).to(torch.float32)
     dy = torch.abs(uv_l[:, None, 1] - uv_r[None, :, 1])
     disp = uv_l[:, None, 0] - uv_r[None, :, 0]
     feas = (

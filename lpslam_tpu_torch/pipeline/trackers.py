@@ -23,8 +23,11 @@ Where that file does not exist, a flat vocabulary is trained on the map's
 first 4096 valid keyframe descriptors once there are 4 keyframes (on the
 frame path, as the JAX package does).
 
-Refused with NotImplementedError: descriptor ablations (``brief_mode``
-other than "polar"). Mask images are read by
+The descriptor path is the ``brief_mode`` option (kernels/orb.py: "polar",
+"binned", "gather" or "exact"; an unknown one raises ValueError at the first
+extraction, as in the JAX package). The shipped vocabulary was trained on
+polar descriptors, so with another mode BoW scoring is as poor as in the
+JAX package. Mask images are read by
 io/png.py and resized nearest-neighbour as OpenCV's INTER_NEAREST does.
 """
 from __future__ import annotations
@@ -52,16 +55,6 @@ from .queues import CameraQueueEntry, SensorQueueEntry
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SHIPPED_VOCAB = os.path.join(_REPO, "lpslam_tpu", "assets", "orb_vocab.npz")
-
-# schema options the port refuses: a value other than the default raises
-_NOT_PORTED = {
-    "brief_mode": "descriptor ablations (ROADMAP rule 9: polar only)",
-}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to lpslam_tpu_torch yet")
-
 
 @dataclass
 class TrackerResult:
@@ -200,16 +193,13 @@ class VSLAMTracker(TrackerBase):
 
     def __init__(self, cam: PinholeCamera, config: Optional[dict] = None, *, device):
         super().__init__(config)
-        defaults = self.schema.defaults()
-        for name, what in _NOT_PORTED.items():
-            if self.cfg[name] != defaults[name]:
-                raise _not_ported(f"option '{name}': {what}")
         orb = OrbParams(
             num_keypoints=self.cfg["keypoints"],
             num_levels=self.cfg["levels"],
             scale_factor=self.cfg["scale_factor"],
             fast_threshold=self.cfg["fast_threshold"],
             fast_min_threshold=self.cfg["fast_min_threshold"],
+            brief_mode=self.cfg["brief_mode"],
         )
         tcfg = TrackerConfig(orb=orb, map_cfg=MapConfig(
             max_keyframes=self.cfg["max_keyframes"],

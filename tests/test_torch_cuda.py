@@ -27,6 +27,21 @@ one; run them there with
   and 0.60-0.86% of the bits differing; ``use_pallas=True`` gave equal
   level-0 keypoints on all ten, angle differences up to 2.9e-5 rad and
   0.25-0.36% of the bits differing (at most 7 on one keypoint).
+- The descriptor modes binned, gather and exact on the card against the CPU,
+  one extraction each: the patch kernel launches once per level in binned
+  and never in gather / exact, the FAST kernels once per level in all;
+  level-0 keypoints equal; angles from the moment maps (whose cumulative
+  sums add in another order on the card) within 5e-4 rad where the
+  centroid is strong (|m| > 1e3, tests/test_torch_brief_modes.py's bar);
+  < 2% of those keypoints' descriptor bits differ (bins flip at their
+  edges, near-tied taps flip with the blur's rounding).
+- The Hamming kernel (csrc/hamming.cu) bit-equal to its plain SWAR version
+  at the tracker's 4096 x 1200, at 1 x 1, 257 x 131, all-equal and
+  all-complement descriptors, one launch per call and none for 0 x 5; the
+  matchers give the same indices and flags with and without the product.
+- ``run_dataset --brief-mode`` on the card (its default device) for each of
+  the four modes, on a small room: every frame fed, most tracked, the
+  kernels launched (the patch kernel only where the mode uses patches).
 - The HD720 pyramid of phase 13's stereo pair (720x1280, 600x1067,
   500x889 at B = 2): both kernels bit-equal to their plain versions.
 - The pipeline on the card: RectifyProcessor's undistorted and rectified
@@ -51,7 +66,8 @@ import pytest
 import torch
 
 from lpslam_tpu_torch.io.synthetic import make_texture
-from lpslam_tpu_torch.kernels import fast_nms, orb, patch
+from lpslam_tpu_torch.kernels import fast_nms, match, orb, patch
+from lpslam_tpu_torch.kernels.pyramid import build_pyramid, gaussian_blur
 from lpslam_tpu_torch.loop import detector, vocab
 from lpslam_tpu_torch.mapstore import store
 
@@ -166,6 +182,98 @@ def test_extract_orb_on_card_matches_cpu(cuda_device, use_pallas):
             (got.desc[b, :k0].cpu().numpy()[m] ^ want.desc[b, :k0].numpy()[m]).view(np.uint8)
         )
         assert bits.mean() < 0.02, bits.mean()
+
+
+@pytest.mark.parametrize("mode", ["binned", "gather", "exact"])
+def test_extract_orb_brief_modes_on_card_match_cpu(cuda_device, mode):
+    img = torch.from_numpy(np.stack([make_texture(240, 320, seed=s) for s in (11, 12)]))
+    params = orb.OrbParams(512, 3, brief_mode=mode)
+    before = patch.LAUNCHES, fast_nms.LAUNCHES, fast_nms.MAX_LAUNCHES
+    got = orb.extract_orb(img.to(cuda_device), params)
+    torch.cuda.synchronize()
+    after = patch.LAUNCHES, fast_nms.LAUNCHES, fast_nms.MAX_LAUNCHES
+    levels = params.num_levels
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        levels if mode == "binned" else 0, levels, levels)
+    want = orb.extract_orb(img, params)
+    k0 = orb._level_budgets(512, 3, 1.2)[0]
+    blurred = gaussian_blur(build_pyramid(img, 3, 1.2)[0], sigma=2.0, radius=3)
+    m10, m01 = (x.numpy() for x in orb.orientation_maps(blurred))
+    for b in range(2):
+        xy_g, xy_c = got.xy[b, :k0].cpu().numpy(), want.xy[b, :k0].numpy()
+        v_g, v_c = got.valid[b, :k0].cpu().numpy(), want.valid[b, :k0].numpy()
+        np.testing.assert_array_equal(xy_g, xy_c)
+        np.testing.assert_array_equal(v_g, v_c)
+        xi, yi = xy_c.astype(int).T
+        m = v_c & (np.hypot(m10[b, yi, xi], m01[b, yi, xi]) > 1e3)
+        assert m.sum() > 50
+        da = np.angle(np.exp(1j * (got.angle[b, :k0].cpu().numpy() - want.angle[b, :k0].numpy())))
+        assert np.abs(da[m]).max() <= 5e-4
+        bits = np.unpackbits(
+            (got.desc[b, :k0].cpu().numpy()[m] ^ want.desc[b, :k0].numpy()[m]).view(np.uint8))
+        assert bits.mean() < 0.02, bits.mean()
+
+
+def test_hamming_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(4)
+
+    def desc(n):
+        return torch.from_numpy(rng.integers(0, 2**32, (n, 8), dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32))
+
+    a, b = desc(4096), desc(1200)
+    cases = [(a, b), (a[:1], b[:1]), (a[:257], b[:131]), (b, b), (b, ~b), (a[:33], b[:129])]
+    for x, y in cases:
+        before = match.LAUNCHES
+        got = match.hamming_matrix(x.to(cuda_device), y.to(cuda_device))
+        torch.cuda.synchronize()
+        assert match.LAUNCHES == before + 1
+        assert got.dtype == torch.int32 and got.shape == (len(x), len(y))
+        assert torch.equal(got.cpu(), match.hamming_matrix_reference(x, y))
+        assert torch.equal(got, match.hamming_matrix_reference(x.to(cuda_device),
+                                                               y.to(cuda_device)))
+    assert (torch.diagonal(match.hamming_matrix(b.to(cuda_device), (~b).to(cuda_device)))
+            == 256).all()
+    before = match.LAUNCHES
+    assert match.hamming_matrix(a[:0].to(cuda_device), b[:5].to(cuda_device)).shape == (0, 5)
+    assert match.LAUNCHES == before
+    with pytest.raises(ValueError):
+        match.hamming_matrix_cuda(a, b)                       # CPU tensors
+    with pytest.raises(TypeError):
+        match.hamming_matrix_cuda(a.to(cuda_device, torch.int64), b.to(cuda_device))
+    with pytest.raises(ValueError):
+        match.hamming_matrix_cuda(a[:, :4].to(cuda_device), b[:, :4].to(cuda_device))
+    # the matchers launch the kernel once per call and pick the CPU's pairs
+    va = torch.ones(4096, dtype=torch.bool)
+    vb = torch.ones(1200, dtype=torch.bool)
+    a_m = a.clone()
+    a_m[:600] = b[:600] ^ 1                                   # near-duplicates
+    want = match.match_mutual_nn(a_m, b, va, vb, 80, 0.9)
+    before = match.LAUNCHES
+    got = match.match_mutual_nn(a_m.to(cuda_device), b.to(cuda_device), va.to(cuda_device),
+                                vb.to(cuda_device), 80, 0.9)
+    assert match.LAUNCHES == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert int(want[1].sum()) >= 600
+
+
+@pytest.mark.parametrize("mode", ["polar", "binned", "gather", "exact"])
+def test_run_dataset_brief_modes_on_card(cuda_device, mode, tmp_path):
+    import json
+
+    from lpslam_tpu_torch.eval import run_dataset
+
+    out = tmp_path / "out.json"
+    before = patch.LAUNCHES, fast_nms.LAUNCHES
+    assert run_dataset.main(["--bench", "room", "--width", "160", "--height", "120",
+                             "--keypoints", "256", "--levels", "2", "--max-keyframes", "16",
+                             "--max-landmarks", "2048", "--frames", "40", "--chunk", "8",
+                             "--brief-mode", mode, "--json-out", str(out)]) == 0
+    res = json.loads(out.read_text())
+    assert res["device"].startswith("cuda") and res["frames"] == 40
+    assert res["tracked"] >= 25, res          # 31 of 40 on the CPU (init at frame 9)
+    assert fast_nms.LAUNCHES > before[1]
+    assert (patch.LAUNCHES > before[0]) == (mode in ("polar", "binned"))
 
 
 def test_bow_on_card_matches_cpu(cuda_device):
@@ -377,7 +485,7 @@ def test_distributed_bundle_adjust_on_card_matches_cpu(cuda_device):
     from lpslam_tpu_torch.eval.scaling import _camera, build_problem
 
     C, P, N = 8, 256, 256
-    cpu = distributed_bundle_adjust(build_problem(C, P, N), _camera("cpu"), iters=8)
+    cpu = distributed_bundle_adjust(build_problem(C, P, N, device="cpu"), _camera("cpu"), iters=8)
     card = run_world(_dba_world, 1, C, P, N, backend="nccl", device="cuda", timeout=300.0)[0]
     local = distributed_bundle_adjust(build_problem(C, P, N, device=cuda_device),
                                       _camera(cuda_device), iters=8)

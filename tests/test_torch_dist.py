@@ -321,7 +321,8 @@ def results(cases):
     from lpslam_tpu_torch.dist.mesh import run_world
 
     with ThreadPoolExecutor(len(WORLDS)) as ex:
-        futs = {n: ex.submit(run_world, _world_cases, n, cases, timeout=300.0) for n in WORLDS}
+        futs = {n: ex.submit(run_world, _world_cases, n, cases, backend="gloo", device="cpu",
+                              timeout=300.0) for n in WORLDS}
         ref = _jax_cases(cases)
         return {n: f.result() for n, f in futs.items()}, ref
 
@@ -474,16 +475,18 @@ def test_resident_sequence_world_invariance(worlds):
 
 
 def test_world_of_one_without_a_process_group(cases, worlds):
-    """No process group: the default mesh is a world of one in this process,
-    and gives what the gloo world of one gives."""
+    """No process group: a mesh on the CPU, asked for by name, is a world of
+    one in this process; a solve given no mesh builds that world on the
+    device its problem lies on, and gives what the gloo world of one gives."""
     from lpslam_tpu_torch.backend.ba import BAProblem
-    from lpslam_tpu_torch.dist import default_mesh, make_mesh, sharded_global_ba_problem
+    from lpslam_tpu_torch.dist import make_mesh, sharded_global_ba_problem
     from lpslam_tpu_torch.geometry.camera import PinholeCamera
 
-    mesh = default_mesh()
+    mesh = make_mesh(device="cpu")
     assert mesh.size == 1 and mesh.rank == 0 and mesh.device_mesh is None
+    assert mesh.device == torch.device("cpu")
     with pytest.raises(ValueError):
-        make_mesh(2)
+        make_mesh(2, device="cpu")
     _, data, cam_args, kw = cases["sgba_converge"]
     res = sharded_global_ba_problem(BAProblem(**_t(data)),
                                     PinholeCamera.make(*cam_args, "cpu"), **kw)
@@ -504,3 +507,64 @@ def test_a_step_that_empties_the_active_set_is_refused():
     assert not bool(_accept(t(5.0), t(10.0), t(49.0), t(100.0)))
     assert not bool(_accept(t(float("nan")), t(10.0), t(100.0), t(100.0)))
     assert not bool(_accept(t(11.0), t(10.0), t(100.0), t(100.0)))
+
+
+def _noop_rank(mesh):
+    return mesh.rank
+
+
+def test_dist_needs_a_card_unless_the_cpu_is_asked_for():
+    """The card is the default everywhere in dist/ and eval/scaling.py:
+    without one, the default mesh, a world with run_world's defaults, an
+    NCCL init_distributed and the default build_problem raise; nothing
+    carries on on the CPU unless the caller says device="cpu"."""
+    from lpslam_tpu_torch.dist import default_mesh, make_mesh
+    from lpslam_tpu_torch.dist.mesh import init_distributed, run_world
+    from lpslam_tpu_torch.eval.scaling import build_problem
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+    for call in (make_mesh, default_mesh, lambda: run_world(_noop_rank, 2),
+                 lambda: init_distributed("localhost:1", 2, 0),
+                 lambda: init_distributed(), lambda: build_problem(4, 16, 8)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert make_mesh(device="cpu").device == torch.device("cpu")
+    assert init_distributed(backend="gloo") is None          # one process: a no-op
+    assert build_problem(4, 16, 8, device="cpu").cam_R.device == torch.device("cpu")
+
+
+def _gloo_rank(rank, port, out):
+    from lpslam_tpu_torch.dist.mesh import init_distributed, make_mesh
+
+    init_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    try:
+        x = make_mesh(2, device="cpu").all_reduce(torch.tensor([rank + 1.0]))
+        out.put((rank, float(x[0])))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_init_distributed_joins_a_gloo_world_when_asked():
+    """init_distributed(backend="gloo") joins two spawned processes over a
+    TCP rendezvous on this host; their all-reduce sums both ranks."""
+    import multiprocessing
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, port, out), daemon=True) for r in (0, 1)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(out.get(timeout=120.0) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=30.0)
+            if p.is_alive():
+                p.terminate()
+    assert got == {0: 3.0, 1: 3.0}
+    assert all(p.exitcode == 0 for p in procs)

@@ -12,8 +12,9 @@ within +-1; keyframes within +-1; tracked frames within 1; Sim3 ATE
 
 Also the asynchronous loop worker (a verdict in flight is remapped through
 a compaction that lands meanwhile, or dropped when a party was culled;
-flush() lands every verdict), the one option that stays refused
-(`brief_mode`), the ten options the pipeline slice ported (each held to the
+flush() lands every verdict), `brief_mode="binned"` through the whole
+tracker against JAX's (its closures and the slice margins), the ten options
+the pipeline slice ported (each held to the
 JAX package's option on the same input: exact masks, occupancy grids, laser
 buffers, emitted features, loaded maps; reseeded poses within 1e-6), and the
 TrackerResult pose conversion.
@@ -31,7 +32,6 @@ from lpslam_tpu_torch.geometry import PinholeCamera as TCam
 from lpslam_tpu_torch.loop.detector import LoopResult, LoopVerdict
 from lpslam_tpu_torch.pipeline import ConfigError, VSLAMTracker
 from lpslam_tpu_torch.pipeline.queues import CameraQueueEntry
-from lpslam_tpu_torch.pipeline.trackers import _NOT_PORTED
 
 import chip_smoke
 
@@ -181,18 +181,27 @@ def test_verdict_epoch_skips_perms_seen_before_submission():
     assert (stub.applied[0].k_new, stub.applied[0].result.candidate) == (1, 2)
 
 
-@pytest.mark.parametrize("name", sorted(_NOT_PORTED))
-def test_options_of_later_slices_refuse(name):
-    default = VSLAMTracker.schema.defaults()[name]
-    if isinstance(default, bool):
-        value = not default
-    elif isinstance(default, float):
-        value = default + 1.0
-    else:
-        value = "x"
+def test_brief_mode_binned_tracks_like_jax(orbit):
+    """The descriptor option reaches the engine: both trackers run the binned
+    descriptors (moment-map angles, 12-degree bins) through host init, the
+    chunk loop and loop closing with the polar-trained vocabulary. An
+    unknown mode raises ValueError at the first extraction, as in JAX."""
+    from lpslam_tpu.io.synthetic import make_texture
+
+    config = dict(CONFIG, brief_mode="binned")
+    ref, ours = _run("jax", orbit, config), _run("torch", orbit, config)
+    assert ours["tracker"].engine.cfg.orb.brief_mode == "binned"
+    assert ref["tracked"] >= 30, ref
+    assert abs(len(ours["closures"]) - len(ref["closures"])) <= 1, (ours, ref)
+    assert abs(ours["keyframes"] - ref["keyframes"]) <= 1, (ours, ref)
+    assert ours["tracked"] >= ref["tracked"] - 1, (ours, ref)
+    assert ours["ate"] <= max(1.5 * ref["ate"], ref["ate"] + 0.02), (ours, ref)
+    assert ours["state"] == ref["state"] == "TRACKING"
+    assert ours["finite"]
     cam = TCam.make(100.0, 100.0, 80.0, 60.0, device="cpu")
-    with pytest.raises(NotImplementedError, match=name):
-        VSLAMTracker(cam, {name: value}, device="cpu")
+    tr = VSLAMTracker(cam, {"brief_mode": "x", "keypoints": 64}, device="cpu")
+    with pytest.raises(ValueError, match="brief_mode"):
+        tr.process_image(CameraQueueEntry(timestamp=0.0, image=make_texture(120, 160, seed=1)))
 
 
 # the ten options the pipeline slice ported, each checked against the JAX

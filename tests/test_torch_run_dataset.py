@@ -146,3 +146,34 @@ def test_rpe_matches_jax():
     est = 0.5 * gt + rng.normal(scale=0.05, size=gt.shape)
     for d in (1, 3):
         assert rpe_rmse(est, gt, d) == jrpe(est, gt, d)
+
+
+@pytest.mark.parametrize("brief", ["polar", "binned", "gather", "exact"])
+def test_brief_mode_choices(tmp_path, monkeypatch, brief):
+    """--brief-mode takes the JAX tool's four choices and reaches the
+    extraction: the mode's descriptor function runs on every extraction
+    (the moment maps only off the polar path), and the room tracks."""
+    from lpslam_tpu_torch.kernels import orb
+
+    calls = []
+    for name in ("orientation_maps", "polar_brief_from_patches", "_binned_from_patches",
+                 "steered_brief_gather", "steered_brief"):
+        orig = getattr(orb, name)
+        monkeypatch.setattr(orb, name, lambda *a, _o=orig, _n=name, **k: (
+            calls.append(_n), _o(*a, **k))[1])
+    out = _run("torch", ROOM + ["--mode", "mono", "--frames", "32", "--chunk", "8",
+                                "--brief-mode", brief], tmp_path)
+    want = {"polar": "polar_brief_from_patches", "binned": "_binned_from_patches",
+            "gather": "steered_brief_gather", "exact": "steered_brief"}[brief]
+    assert set(calls) == ({want} if brief == "polar" else {want, "orientation_maps"}), calls
+    assert calls.count(want) >= 2 * 10          # 2 levels, every extraction
+    assert out["frames"] == 32 and out["tracked"] >= 20, out
+
+
+def test_brief_mode_unknown_choice_refused():
+    from lpslam_tpu.eval import run_dataset as jrun
+    from lpslam_tpu_torch.eval import run_dataset as trun
+
+    for mod in (jrun, trun):
+        with pytest.raises(SystemExit):
+            mod.main(ROOM + ["--brief-mode", "hexagonal", "--frames", "2"])

@@ -23,7 +23,7 @@ TINY = ["--keyframes", "16", "--landmarks", "512", "--obs", "64", "--iters", "4"
 
 def test_build_problem_is_the_jax_tools():
     ref = jscaling.build_problem(16, 512, 64)
-    ours = scaling.build_problem(16, 512, 64)
+    ours = scaling.build_problem(16, 512, 64, device="cpu")
     for k in ("obs_lm", "cam_fixed", "point_valid", "points", "obs_sigma2"):
         np.testing.assert_array_equal(getattr(ours, k).numpy(), np.asarray(getattr(ref, k)), k)
     for k, tol in (("cam_R", 1e-6), ("cam_t", 1e-5), ("obs_uv", 1e-3)):

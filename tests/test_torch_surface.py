@@ -1,7 +1,6 @@
 """Port parity, the package surface: every name a JAX subpackage's
 ``__init__`` exports is exported by the port's, compared by AST (nothing is
-imported), save an allowlist of names ROADMAP rule 9 refuses; no
-subpackage is missing. Then the helpers that surface brought in, against JAX on the
+imported), with an allowlist that is now empty; no subpackage is missing. Then the helpers that surface brought in, against JAX on the
 CPU: so3.vee / quat_normalize, se3_from_Rt / se3_retract / se3_to_matrix /
 se3_from_matrix / se3_adjoint, and three helpers no test held before:
 io.synthetic.warp_homography, SlamManager.vehicle_pose_from_marker and
@@ -19,10 +18,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 
-ALLOWED_GAPS = {
-    # ROADMAP rule 9: the +/-1 matmul Hamming matrix no caller selects
-    ("kernels", "hamming_matrix"),
-}
+ALLOWED_GAPS = set()                # every JAX export is ported
 ALLOWED_MISSING_PACKAGES = set()   # every JAX subpackage is ported
 
 

@@ -130,7 +130,8 @@ def room_spread(meshes) -> int:
     map_np = {k: np.asarray(v) for k, v in m._asdict().items()}
     port = {}
     for n in (1, 2):
-        port[n] = run_world(_port_room_world, n, map_np, tuple(float(v) for v in cam_args))[0]
+        port[n] = run_world(_port_room_world, n, map_np, tuple(float(v) for v in cam_args),
+                            backend="gloo", device="cpu")[0]
         out["port_cpu"][n] = {"initial_cost": port[n]["initial_cost"],
                               "final_cost": port[n]["final_cost"],
                               "kf_t_max_diff_vs_jax_mesh1":
