@@ -23,14 +23,25 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    and operations over 33.5 T/s (the card's fp32 rate outside the tensor
    cores, 67 TFLOP/s, counts an FMA as two; these kernels have none); the
    FAST operations are counted on the timed images (`fast_operations`);
-3c. the Hamming kernel (csrc/hamming.cu, XOR + popcount of 256-bit
-   descriptors; every matcher's distances on the card) against its plain
-   version (a SWAR popcount) on the card, bit-equal, at the tracker's
-   4096 x 1200 and at 1 x 1, 0 x 5, 257 x 131, all-equal and all-complement
-   descriptors; timed like the others, beside the port's ±1 product and
-   torch.cdist(p=0) on the unpacked bits (its `library_ms` where it gives
-   the same integers); the line also prints a popcount-issue estimate (16
-   per SM per clock at the card's maximum SM clock), kept out of the record;
+3c. the Hamming kernels of csrc/hamming.cu. The dense matrix (the tensor
+   cores' single-bit AND + popcount product; every matcher's distances but
+   tracking's) against its plain version (a SWAR popcount) on the card,
+   bit-equal, at the tracker's 4096 x 1200 and at 1 x 1, 0 x 5, 257 x 131,
+   all-equal and all-complement descriptors; timed like the others, beside
+   the port's ±1 product and torch.cdist(p=0) on the unpacked bits (its
+   `library_ms` where it gives the same integers); the line also prints a
+   popcount-issue estimate (16 per SM per clock at the card's maximum SM
+   clock), kept out of the record. The fused projected matcher (tracking's
+   two matchings per frame in one launch each) against its plain version
+   (the dense kernel, then the torch mask and argmin), bit-equal indices and
+   flags, on random and tie-heavy inputs at 4096 x 1200 (25 / 6 / 50 px),
+   an odd keypoint count, keypoints over two and three chunks, views off
+   the 16-byte alignment, NaN pixels and pairs on the window's edge, Nq = 0
+   (no launch) and Nk = 0 (raises); once the room is rendered, again on
+   room frames (4096 projected keypoints of four frames x a fifth's 1200,
+   25 and 6 px) and timed there at 25 px: device alone, wrapper us, event
+   mean beside the plain version, which is the sequence it replaces (no
+   PyTorch call computes the same function: `library_ms` null);
 4. the monocular slice at the reference operating point (640x480 ray-cast
    room with lens distortion, 1200 keypoints, 3 levels, the composite's
    FAST score with each frame's ceiling, chunks of 16): host initialization,
@@ -41,7 +52,9 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
 6. the RGB-D slice (depth maps undistorted with the gray images, fused FAST
    kernel): host initialization, then 3 chunks;
 7. the 740-frame room with loop closure through VSLAMTracker (mono, chunks
-   of 16), twice, held to the JAX package's CPU run (JAX_LOOP_REF);
+   of 16), twice, held to the JAX package's CPU run (JAX_LOOP_REF); the two
+   runs must leave the same map bit for bit (keyframe poses, landmarks,
+   accepted closures): every float sum on the path is ordered;
 8. kidnapped relocalization of four first-lap frames on phase 7's map;
 9. the CLI (`pipeline.cli.main`) in process on a JSON config at the
    operating point: the synthetic source (64 frames, 640x480; it publishes
@@ -122,8 +135,8 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    local_ba -> loop_scores -> global_ba in a world of one over NCCL (in the script's process), the
    scores within 1e-5 of the replicated scoring, final cost <= initial, the
    map finite, n_kf unchanged, residency after every step; and
-   sharded_global_ba of the same map again in the world of one (the spread
-   of the atomics, reported) and in a world of 2 (gloo, the shared card):
+   sharded_global_ba of the same map again in the world of one (which must
+   repeat itself exactly: kf_t max diff 0) and in a world of 2 (gloo, the shared card):
    its initial cost within 1e-5 relative of the world of one's, its final
    cost within 2.8e-3 and kf_t within 3.5e-3 (about twice the JAX
    package's own spread across mesh sizes on a room map: RESIDENT_*;
@@ -139,11 +152,14 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    extraction in every mode and the patch kernel in binned only; one frame
    per mode on the card against the CPU (level-0 keypoints equal, angles
    within 5e-4 rad at strong centroids, < 2% of the bits); and the matchers
-   on the card (the Hamming kernel, once per call) giving the same indices
-   and flags as on the CPU (its plain version) on the room's frames (4096
-   queries x 1200 keypoints projected, and mutual).
+   on the card (the fused matcher for the projected one, the dense Hamming
+   kernel for the mutual one, once each) giving the same indices and flags
+   as on the CPU (their plain versions) on the room's frames (4096 queries
+   x 1200 keypoints projected, and mutual).
 Phases 9-12 check that no worker or tracker error was recorded and that
-each of the four kernels launched; each prints its frames/s and wall time.
+each of the five kernels launched (phase 10, which neither initializes nor
+maps, all but the dense Hamming matrix); each prints its frames/s and wall
+time.
 Each path resets the kernels' launch counters just before its
 initialization and reads them just after its loop. Checks per path: ends
 TRACKING, >= 90% frames tracked, finite poses, >= 2 keyframes inserted in
@@ -151,15 +167,18 @@ the chunk loop, the kernels launched on every extraction (the patch and
 score kernels once per level; on the mono paths, phases 4, 7 and 8, the max
 pass too), and ATE under a bound: Sim3-aligned < 0.10 m for mono; aligned without scale (depth fixes
 the scale) under max(1.5 x, + 0.02 m) of the JAX package's CPU run on the
-same frames for stereo and RGB-D (JAX_CPU_ATE). Every matcher (tracking,
+same frames for stereo and RGB-D (JAX_CPU_ATE). Tracking's two projected
+matchings per frame run the fused matcher: the chunk loops launch it at
+least twice per frame, phase 7 at least twice per tracked frame after the
+one that initialized (two-view, no projected matching), and every other
+path that tracks at least once. Every other matcher (initialization,
 mapping, stereo, relocalization, loop verification) takes its distances
-from the Hamming kernel: the chunk loops launch it at least twice per frame
-(the two projected matchings), phase 7 at least twice per tracked frame,
-and every other path that tracks at least once.
+from the dense Hamming kernel, launched on every path that initializes,
+maps or relocalizes.
 
 The line before the last is the per-kernel JSON record: launches summed
 over the paths of phases 4-14 and 16; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
-three levels at B = 16 (the Hamming kernel: at 4096 x 1200); `enqueue_us`
+three levels at B = 16 (the Hamming kernels: at 4096 x 1200); `enqueue_us`
 the mean over them; `levels` the per-level and B = 1 readings. The last
 line is {"ok": true, "device": {...}}.
 """
@@ -794,6 +813,197 @@ def check_hamming_kernel(device, seed: int = 3):
     return rec
 
 
+# the fused matcher's least work, counted on these inputs: for each pair
+# inside the window with both sides valid, 8 XORs and 7 adds on the integer
+# pipe (64 per SM per clock) and 8 popcounts on the popcount pipe (16 per SM
+# per clock), at the card's maximum SM clock. The two pipes issue
+# concurrently, so the larger of their times counts. The window test of the
+# other pairs is not counted: a grid of the keypoints would test only the
+# pairs near each query.
+INT_PER_CLOCK = 64 * 132
+
+
+def projected_bound(args, radius: float, clock_hz: float):
+    """(ms, "bytes" | "operations", pairs tested, pairs inside) of the fused
+    matcher on these inputs: each input read once and the outputs written
+    once, against the bit counting of the pairs inside the window. `pairs
+    tested` (the valid queries times Nk, what this kernel's scan tests) is
+    reported beside it, not bounded."""
+    dq, uq, vq, dk, uk, vk = args
+    nq, nk = dq.shape[0], dk.shape[0]
+    n_bytes = (nq + nk) * (32 + 8 + 1) + nq * (8 + 1)
+    d2 = ((uq[:, None, :] - uk[None, :, :]) ** 2).sum(-1)
+    inside = int(((d2 <= radius * radius) & vq[:, None] & vk[None, :]).sum())
+    tested = int(vq.sum()) * nk
+    t_ops = max(15 * inside / (INT_PER_CLOCK * clock_hz),
+                8 * inside / (POPC_PER_CLOCK * clock_hz))
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", tested, inside
+
+
+def projected_cases(device, seed: int = 5) -> dict:
+    """Inputs of the fused matcher's checks: 4096 queries x 1200 keypoints
+    in a 640 x 480 frame, the queries near keypoints (so windows hold
+    pairs), random descriptors and descriptors drawn from a pool of 8 (ties
+    everywhere); an odd keypoint count; keypoints over two and three chunks (9001 and
+    17000 > 8192); views that start off the 16-byte alignment; NaN pixels;
+    and pairs exactly on the window's edge (whole pixels, offsets 3, 4 at
+    radius 5)."""
+    rng = np.random.default_rng(seed)
+
+    def words(n):
+        return rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+
+    def inputs(nq, nk, pool=None, spread=12.0):
+        """Each query near a keypoint; its descriptor that keypoint's with a
+        bit flipped in some words (half the queries) or drawn anew, or, with
+        `pool`, both sides drawn from `pool` descriptors."""
+        src = rng.integers(0, nk, nq)
+        if pool is None:
+            dk = words(nk)
+            flips = (rng.random((nq, 8)) < 0.5).astype(np.uint32) << rng.integers(
+                0, 32, (nq, 8)).astype(np.uint32)
+            dq = np.where((rng.random(nq) < 0.5)[:, None], dk[src] ^ flips, words(nq))
+        else:
+            table = words(pool)
+            dk, dq = table[rng.integers(0, pool, nk)], table[rng.integers(0, pool, nq)]
+        uk = rng.uniform(0, [640, 480], (nk, 2)).astype(np.float32)
+        uq = (uk[src] + rng.normal(0, spread, (nq, 2))).astype(np.float32)
+        T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+        return [T(dq.view(np.int32)), T(uq), T(rng.random(nq) > 0.1),
+                T(dk.view(np.int32)), T(uk), T(rng.random(nk) > 0.1)]
+
+    na, nb = HAMMING_SIZE
+    cases = {"random 4096x1200": inputs(na, nb), "pool of 8": inputs(na, nb, pool=8),
+             "odd 33x1201": inputs(33, 1201), "two chunks 300x9001": inputs(300, 9001),
+             "three chunks 257x17000": inputs(257, 17000, pool=8)}
+    off = inputs(101, 1203)
+    cases["views off alignment"] = [x[1:] for x in off]
+    nan = inputs(512, 700)
+    nan[1][::7, 0] = float("nan")
+    nan[4][::5, 1] = float("nan")
+    cases["nan pixels"] = nan
+    edge = inputs(64, 64)
+    edge[0] = torch.from_numpy(words(64).view(np.int32)).to(device)
+    edge[1] = torch.floor(edge[1])
+    edge[4] = torch.cat([edge[1] + torch.tensor([3.0, 4.0], device=device),
+                         edge[1] + torch.tensor([3.0, 4.0001], device=device)])
+    edge[3] = torch.cat([edge[0] ^ 7, edge[0]])
+    edge[2] = torch.ones(64, dtype=torch.bool, device=device)
+    edge[5] = torch.ones(128, dtype=torch.bool, device=device)
+    cases["window edge"] = edge
+    return cases
+
+
+def projected_err(got, want) -> tuple[int, int]:
+    """(largest |index difference|, count of differing `ok` flags) of the
+    fused matcher's (idx, ok) against its plain version's."""
+    if got[0].shape != want[0].shape or got[1].shape != want[1].shape:
+        raise AssertionError(f"fused projected matcher: shapes {tuple(got[0].shape)} "
+                             f"{tuple(got[1].shape)}, want {tuple(want[0].shape)} "
+                             f"{tuple(want[1].shape)}")
+    if not got[0].numel():
+        return 0, 0
+    return int((got[0] - want[0]).abs().max()), int((got[1] != want[1]).sum())
+
+
+def check_projected_kernel(device) -> dict:
+    """Phase 3c, the fused projected matcher (csrc/hamming.cu
+    lpslam_match_projected) against its plain version (the dense kernel,
+    then the torch mask and argmin) on the card, bit-equal indices and
+    flags, on projected_cases at windows of 25 / 6 / 50 px, one launch per
+    call, none for Nq = 0; Nk = 0 raises as the plain version does. Returns
+    its kernel record, `max_abs_err` the largest index difference over every
+    comparison (and `ok_differ` the differing flags); the timing on room
+    frames comes in time_projected_kernel."""
+    from lpslam_tpu_torch.kernels import match
+
+    differ, max_err, ok_differ = [], 0, 0
+    for name, args in projected_cases(device).items():
+        for radius in ((25.0, 6.0, 50.0) if "4096" in name else (25.0,)):
+            if name == "window edge":
+                radius = 5.0
+            before = match.PROJECTED_LAUNCHES
+            got = match.match_projected_cuda(*args, radius, 80)
+            want = match.match_projected_reference(*args, radius, 80)
+            torch.cuda.synchronize()
+            err, flags = projected_err(got, want)
+            max_err, ok_differ = max(max_err, err), ok_differ + flags
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                    and match.PROJECTED_LAUNCHES == before + 1):
+                differ.append(f"{name} r={radius}")
+            if name == "window edge" and not torch.equal(
+                    got[0], torch.arange(64, device=device)):
+                differ.append("window edge: the (3, 4) keypoint not taken")
+    args = projected_cases(device)["random 4096x1200"]
+    before = match.PROJECTED_LAUNCHES
+    empty = match.match_projected_cuda(*(x[:0] if i < 3 else x for i, x in enumerate(args)),
+                                       25.0, 80)
+    if empty[0].shape != (0,) or match.PROJECTED_LAUNCHES != before:
+        differ.append("Nq = 0 launched or gave a non-empty result")
+    try:
+        match.match_projected_cuda(*(x[:0] if i >= 3 else x for i, x in enumerate(args)),
+                                   25.0, 80)
+        differ.append("Nk = 0 did not raise")
+    except IndexError:
+        pass
+    if differ:
+        raise AssertionError(f"fused projected matcher differs from its plain version: {differ} "
+                             f"(max index difference {max_err}, {ok_differ} ok flags differ)")
+    print("match_projected " + ", ".join(projected_cases(device)) + " (25 / 6 / 50 px at "
+          "4096 x 1200), Nq = 0, Nk = 0: bit-equal")
+    return {"name": "match_projected", "route": "cuda",
+            "source": "lpslam_tpu_torch/csrc/hamming.cu",
+            "replaces": "lpslam_tpu/kernels/match.py:89 match_projected (XLA, no Pallas kernel)",
+            "launches": 0, "max_abs_err": max_err, "ok_differ": ok_differ, "ms": None,
+            "plain_ms": None, "bound_ms": None, "bound_by": None, "library_ms": None,
+            "library": "none"}
+
+
+def time_projected_kernel(device, rectified, rec: dict) -> None:
+    """Phase 3c on room frames (room_matcher_inputs: 4096 queries x 1200
+    keypoints of five room frames, the tracker's size; random pixels would
+    leave almost every window empty): bit-equal to the plain version at the
+    tracker's 25 and 6 px windows, then timed at 25 px as the other kernels
+    are (device alone, L2-warm and cold; wrapper us; event mean beside the
+    plain version, which is the dense kernel and the torch sequence the
+    fused kernel replaces). Fills `rec` in place."""
+    from lpslam_tpu_torch.kernels import match
+
+    args = room_matcher_inputs(rectified)[0]
+    clock_hz = sm_clock_max_mhz() * 1e6
+    matches = {}
+    for radius in (25.0, 6.0):
+        got = match.match_projected_cuda(*args, radius, 80)
+        want = match.match_projected_reference(*args, radius, 80)
+        torch.cuda.synchronize()
+        err, flags = projected_err(got, want)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["ok_differ"] += flags
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"fused projected matcher differs on room frames at {radius} px "
+                                 f"(max index difference {err}, {flags} ok flags differ)")
+        matches[radius] = int(want[1].sum())
+    bound, by, tested, inside = projected_bound(args, 25.0, clock_hz)
+    set_bytes = sum(x.numel() * x.element_size() for x in args)
+    warm, cold = device_times(lambda x: match.match_projected_cuda(*x, 25.0, 80),
+                              lambda: [x.clone() for x in args], set_bytes)
+    rec.update({
+        "ms": cuda_ms(lambda: match.match_projected(*args, 25.0, 80)),
+        "plain_ms": cuda_ms(lambda: match.match_projected_reference(*args, 25.0, 80)),
+        "bound_ms": bound, "bound_by": by, "device_ms": warm, "device_cold_ms": cold,
+        "enqueue_us": enqueue_us(lambda: match.match_projected(*args, 25.0, 80)),
+        "pairs_tested": tested, "pairs_inside": inside, "matches_25px": matches[25.0],
+        "matches_6px": matches[6.0]})
+    print(f"match_projected on room frames 4096x1200 at 25 px: {tested} pairs tested, {inside} "
+          f"inside the window, {matches[25.0]} matches ({matches[6.0]} at 6 px); device "
+          f"{warm:.4f} ms (L2-warm), "
+          f"{cold:.4f} ms (cold), bound {bound:.7f} ms ({by}), share {bound / warm:.4f}; "
+          f"wrapper {rec['enqueue_us']:.1f} us/call, event mean {rec['ms']:.4f} ms, plain "
+          f"(the dense kernel and the torch sequence it replaces) {rec['plain_ms']:.4f} ms; "
+          "library: none")
+
+
 def _kernel_counters():
     from lpslam_tpu_torch.kernels import fast_nms, match, patch
 
@@ -803,18 +1013,21 @@ def _kernel_counters():
 def reset_launches():
     fast_nms, patch, match = _kernel_counters()
     fast_nms.LAUNCHES = fast_nms.MAX_LAUNCHES = patch.LAUNCHES = match.LAUNCHES = 0
+    match.PROJECTED_LAUNCHES = 0
 
 
 EXTRACTION_KERNELS = ("fast_nms_score", "fast_lo_max", "extract_patches")
 
 
 def read_launches() -> dict:
-    """Every kernel's count: the three extraction kernels' and the Hamming
-    kernel's (every matcher call: tracking, mapping, stereo, relocalization,
-    loop verification)."""
+    """Every kernel's count: the three extraction kernels', the dense
+    Hamming kernel's (every matcher call but tracking's: initialization,
+    mapping, stereo, relocalization, loop verification) and the fused
+    projected matcher's (tracking's two matchings per frame)."""
     fast_nms, patch, match = _kernel_counters()
     return {"fast_nms_score": fast_nms.LAUNCHES, "fast_lo_max": fast_nms.MAX_LAUNCHES,
-            "extract_patches": patch.LAUNCHES, "hamming_matrix": match.LAUNCHES}
+            "extract_patches": patch.LAUNCHES, "hamming_matrix": match.LAUNCHES,
+            "match_projected": match.PROJECTED_LAUNCHES}
 
 
 def extraction(launches: dict) -> dict:
@@ -994,8 +1207,8 @@ def run_slice(device, mode: str = "mono", levels: int = LEVELS, chunk: int = CHU
     checks[f"the kernels on every extraction ({want_all})"] = (
         extraction(loop_launches) == want_all)
     # two projected matchings (wide, then tight window) on every frame
-    checks[f"the Hamming kernel >= twice per frame ({2 * n_frames})"] = (
-        loop_launches["hamming_matrix"] >= 2 * n_frames)
+    checks[f"the fused projected matcher >= twice per frame ({2 * n_frames})"] = (
+        loop_launches["match_projected"] >= 2 * n_frames)
     if mode == "mono":
         init = st["init_launches"]
         checks["the kernels on every host frame"] = (
@@ -1145,8 +1358,10 @@ def run_loop_room(device, raw, gt, K, grid, config=None):
         "finite map": bool(torch.isfinite(eng.map.kf_t).all() and torch.isfinite(eng.map.lm_pos).all()),
         "the three extraction kernels on every extraction": all(
             n == LEVELS * extractions for n in extraction(launches).values()),
-        "the Hamming kernel >= twice per tracked frame": (
-            launches["hamming_matrix"] >= 2 * met["tracked"]),
+        # the first TRACKING frame is the one that initialized (two-view, no
+        # projected matching); every later one ran track_frame's two
+        "the fused projected matcher >= twice per tracked frame after the initializing one": (
+            launches["match_projected"] >= 2 * (met["tracked"] - 1)),
     }
     if JAX_LOOP_REF is not None:
         n_ref = len(JAX_LOOP_REF["closures"])
@@ -1155,6 +1370,13 @@ def run_loop_room(device, raw, gt, K, grid, config=None):
         checks[f"ATE <= {loop_ate_bound():.4f} m"] = met["ate_m"] <= loop_ate_bound()
     res["checks_failed"] = [k for k, ok in checks.items() if not ok]
     return res, tracker, met["align"], rectified
+
+
+def room_map_bytes(m, closures) -> dict:
+    """Phase 7's map as bytes to compare runs bit for bit: poses, landmark
+    positions and the accepted closures."""
+    return {"kf_R": m.kf_R.cpu().numpy().tobytes(), "kf_t": m.kf_t.cpu().numpy().tobytes(),
+            "lm_pos": m.lm_pos.cpu().numpy().tobytes(), "closures": json.dumps(closures)}
 
 
 def run_kidnap(device, tracker, gt, align, rectified, frames=KIDNAP_FRAMES):
@@ -1345,7 +1567,7 @@ def run_cli_phase(device, images, gt, K, tmp):
         ">= 0.9 of the frames after init tracked": met["tracked"] >= 0.9 * met["after"],
         "map file written": res["map_file_bytes"] > 0,
         "one CSV row per landmark": n_rows == line["landmarks"] > 0,
-        "the four kernels launched": all(n > 0 for n in launches.values()),
+        "the five kernels launched": all(n > 0 for n in launches.values()),
     }
     if JAX_PIPELINE_REF is not None:
         checks[f"ATE <= {pipe_bound('cli'):.4f} m"] = met["ate_m_sim3"] <= pipe_bound("cli")
@@ -1399,7 +1621,10 @@ def run_localize_phase(device, images, gt, K, tmp, map_file):
             met["tracked"] > 0 and met["tracked"] >= 0.9 * met["after"],
         "one feature per landmark": res["features"] == st.landmarks > 0,
         "occupied cells": res["occupied_cells"] > 0,
-        "the four kernels launched": all(n > 0 for n in launches.values()),
+        # localizing neither initializes nor maps, and it relocalizes by the
+        # wide-window projected matching: no dense Hamming matrix on this path
+        "the extraction kernels and the fused matcher launched": all(
+            n > 0 for k, n in launches.items() if k != "hamming_matrix"),
     }
     if JAX_PIPELINE_REF is not None:
         checks[f"ATE <= {pipe_bound('localize'):.4f} m"] = (
@@ -1433,7 +1658,7 @@ def run_dataset_phase(tmp):
         "rc 0": rc == 0,
         ">= 0.9 tracked": line["tracked"] >= 0.9 * line["frames"],
         ">= 1 closure accepted": len(closures) >= 1,
-        "the four kernels launched": all(n > 0 for n in launches.values()),
+        "the five kernels launched": all(n > 0 for n in launches.values()),
     }
     if JAX_PIPELINE_REF is not None:
         ref = JAX_PIPELINE_REF["room"]
@@ -1550,7 +1775,7 @@ def run_record_replay_phase(device, gt, K, tmp):
         "12a: >= 1 SensorGlobalState": stream["counts"].get("global_state", 0) >= 1,
         "12a: one result message per valid result":
             stream["counts"].get("result", 0) == line["tracked"],
-        "12a: the four kernels launched": all(n > 0 for n in launches_a.values()),
+        "12a: the five kernels launched": all(n > 0 for n in launches_a.values()),
     })
 
     # 12b: replay, the same config without its source
@@ -1587,7 +1812,7 @@ def run_record_replay_phase(device, gt, K, tmp):
         f"12b: {PIPE_FRAMES} frames processed": line["frames"] == PIPE_FRAMES,
         "12b: >= 0.9 of the frames after init tracked": met["tracked"] >= 0.9 * met["after"],
         f"12b: ATE <= {bound:.4f} m": met["ate_m_sim3"] <= bound,
-        "12b: the four kernels launched": all(n > 0 for n in launches_b.values()),
+        "12b: the five kernels launched": all(n > 0 for n in launches_b.values()),
     })
 
     # 12c: the codec's bytes on this host
@@ -1928,7 +2153,7 @@ def zed_checks(a: dict, b: dict, c: dict) -> list:
         "13a: rc 0, no worker error": a["rc"] == 0 and a["cli"]["error"] == "",
         f"13a: {n} frames processed, none dropped": a["processed"] == n == a["pushed"],
         "13a: one .pb recording": a["pb_files"] == 1,
-        "13a/b: the four kernels launched": all(
+        "13a/b: the five kernels launched": all(
             x > 0 for r in (a, b) for x in r["launches"].values()),
         "13b: K_new and fx*b those of cv2.fisheye.stereoRectify": (
             abs(b["K_new"][0][0] - ZED_RECT_F) < 1e-4
@@ -2185,21 +2410,29 @@ def brief_card_vs_cpu(img, mode: str) -> dict:
     return out
 
 
-def matchers_card_vs_cpu(device, rectified) -> dict:
-    """match_projected (4096 queries, the keypoints of four frames at their
-    own pixels, against a fifth frame's 1200 keypoints, 15 px window) and
-    match_mutual_nn (two frames) on the card against the same calls on CPU
-    copies of the inputs: the same indices and flags, the distances being
-    exact integers either way. Returns the comparison and the Hamming
-    kernel's launches in the card's calls."""
-    from lpslam_tpu_torch.kernels.match import match_mutual_nn, match_projected
+def room_matcher_inputs(rectified) -> tuple:
+    """The matchers' inputs at the tracker's size from five room frames:
+    match_projected's (4096 queries, the keypoints of frames 0-3 at their
+    own pixels, against frame 4's 1200 keypoints) and match_mutual_nn's
+    (frames 0 and 4)."""
     from lpslam_tpu_torch.kernels.orb import OrbParams, extract_orb
 
     f = [extract_orb(rectified(t), OrbParams(KEYPOINTS, LEVELS)) for t in range(5)]
     n = HAMMING_SIZE[0]
     q = [torch.cat([getattr(x, k) for x in f[:4]])[:n] for k in ("desc", "xy", "valid")]
-    args = (q + [f[4].desc, f[4].xy, f[4].valid],
+    return (q + [f[4].desc, f[4].xy, f[4].valid],
             [f[0].desc, f[4].desc, f[0].valid, f[4].valid])
+
+
+def matchers_card_vs_cpu(device, rectified) -> dict:
+    """match_projected (room_matcher_inputs, 15 px window) and
+    match_mutual_nn (two frames) on the card against the same calls on CPU
+    copies of the inputs: the same indices and flags, the distances being
+    exact integers either way. Returns the comparison and the launches of
+    the dense Hamming kernel and of the fused matcher in the card's calls."""
+    from lpslam_tpu_torch.kernels.match import match_mutual_nn, match_projected
+
+    args = room_matcher_inputs(rectified)
 
     def both(on):
         a_p, a_m = ([x.to(on) for x in a] for a in args)
@@ -2209,10 +2442,12 @@ def matchers_card_vs_cpu(device, rectified) -> dict:
     reset_launches()
     got = both(device)
     torch.cuda.synchronize()
-    launches = read_launches()["hamming_matrix"]
+    launches = read_launches()
     same = all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
-    return {"same": same, "launches": launches, "projected_ok": int(want[1].sum()),
-            "mutual_ok": int(want[3].sum()), "queries": int(q[0].shape[0])}
+    return {"same": same, "launches": launches["hamming_matrix"],
+            "projected_launches": launches["match_projected"],
+            "projected_ok": int(want[1].sum()), "mutual_ok": int(want[3].sum()),
+            "queries": int(args[0][0].shape[0])}
 
 
 def run_brief_phase(device, raw, gt, K, grid) -> dict:
@@ -2271,12 +2506,14 @@ def run_brief_phase(device, raw, gt, K, grid) -> dict:
                 r["ate_m_sim3"] <= brief_ate_bound(mode))
         checks[f"{mode}: launches {want}"] = extraction(launches) == want
         checks[f"{mode}: the Hamming kernel launched"] = launches["hamming_matrix"] > 0
+        checks[f"{mode}: the fused projected matcher launched"] = (
+            launches["match_projected"] > 0)
         checks[f"{mode}: card descriptors against the CPU's"] = r["card_vs_cpu"]["ok"]
     res["matching"] = matchers_card_vs_cpu(device, rectified)
     checks["the matchers on the card give the CPU's indices and flags"] = (
         res["matching"]["same"])
-    checks["the Hamming kernel once per matcher call on the card (2)"] = (
-        res["matching"]["launches"] == 2)
+    checks["the dense Hamming kernel once (mutual) and the fused matcher once (projected)"] = (
+        res["matching"]["launches"] == 1 and res["matching"]["projected_launches"] == 1)
     res["checks_failed"] = [k for k, ok in checks.items() if not ok]
     return res
 
@@ -2300,11 +2537,12 @@ SCALING_SOL_ATOL = 2e-4      # worlds 2 and 4 against 1: tests/test_sharded_map.
 # (`JAX_PLATFORMS=cpu python tools/jax_dist_reference.py --room`). World 2
 # is held to about twice that spread of JAX's. On an H100 80GB HBM3 at
 # 700 W this solver's worlds of 1 and 2 landed kf_t at most 3.07e-3 apart
-# and final costs 5.7e-4 relative over 35 pairs on five maps, and one world
-# against itself up to 2.55e-3 (index_add_'s atomics;
-# `python3 tools/dist_card_spread.py` and three runs of this script). The
-# initial cost, which no solve has moved yet, is held to the rounding of
-# its sums.
+# and final costs 5.7e-4 relative over 35 pairs on five maps
+# (`python3 tools/dist_card_spread.py` and three runs of this script), while
+# its sums were float atomics; with ordered sums the world of one repeats
+# itself exactly and phase 7's map is the same on every run
+# (`python3 tools/card_map_repeat.py`). The initial cost, which no solve has
+# moved yet, is held to the rounding of its sums.
 RESIDENT_SOL_ATOL = 3.5e-3
 RESIDENT_COST_RTOL = 2.8e-3
 RESIDENT_COST0_RTOL = 1e-5
@@ -2501,8 +2739,8 @@ def _resident_world(mesh, map_np, db, cam_args, cfg, sequence):
                     "final_cost": float(res.final_cost), "s": s}}
     if not sequence:
         return out
-    # the same solve again in the same world: the spread of index_add_'s
-    # atomics alone
+    # the same solve again in the same world: its sums are ordered, so it
+    # must repeat the first bit for bit
     (m3, _), out["sgba"]["again_s"] = timed(lambda: sharded_global_ba(m, cam, mesh=mesh))
     out["sgba"]["again_kf_t_max_diff"] = float(torch.max(torch.abs(m3.kf_t - m2.kf_t)))
     rm = ResidentMap(mesh, MapConfig(*cfg), vocab_words=db.shape[1])
@@ -2576,6 +2814,8 @@ def run_resident_phase(map_np, db, cam_args) -> dict:
         "resident: n_kf unchanged": r["n_kf"] == n_kf,
         "sharded_global_ba: final cost <= initial": (one["sgba"]["final_cost"]
                                                     <= one["sgba"]["initial_cost"]),
+        "sharded_global_ba: the world of one repeats itself exactly (kf_t max diff 0)":
+            one["sgba"]["again_kf_t_max_diff"] == 0.0,
     }
     diff = float(np.abs(two["sgba"]["kf_t"][:n_kf] - one["sgba"]["kf_t"][:n_kf]).max())
     res["world2"] = {"sgba": {k: v for k, v in two["sgba"].items() if k != "kf_t"},
@@ -2600,6 +2840,7 @@ def main() -> int:
         return 2
     import lpslam_tpu_torch  # noqa: F401  (sets full-fp32 matmul precision)
     from lpslam_tpu_torch import _cuda, convert, native
+    from lpslam_tpu_torch.kernels.remap import remap_bilinear
 
     device = torch.device("cuda")
     t_all = time.perf_counter()
@@ -2627,7 +2868,9 @@ def main() -> int:
     print(f"phase 3b: FAST+NMS kernels checked in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     records["hamming_matrix"] = check_hamming_kernel(device)
-    print(f"phase 3c: Hamming kernel checked in {time.perf_counter() - t0:.1f} s")
+    records["match_projected"] = check_projected_kernel(device)
+    print(f"phase 3c: Hamming kernel and fused projected matcher checked in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     paths = [("4", "mono", dict()),
              ("5", "stereo", dict(n_chunks=STEREO_CHUNKS, ate_bound=ate_bound("stereo"))),
@@ -2647,14 +2890,23 @@ def main() -> int:
     t0 = time.perf_counter()
     raw, gt, K, grid = render_room()
     print(f"rendered the {len(raw)}-frame room in {time.perf_counter() - t0:.1f} s")
-    # phases 7 (twice: global BA's index_add_ atomics may reorder sums) and 8
-    # all run before a failed check raises, so one call shows the spread
+    t0 = time.perf_counter()
+    grid_d = torch.from_numpy(grid).to(device)
+    time_projected_kernel(
+        device, lambda t: remap_bilinear(torch.from_numpy(raw[t]).to(device, torch.float32),
+                                         grid_d), records["match_projected"])
+    print(f"phase 3c: the fused projected matcher timed on room frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # phases 7 (twice: its sums are ordered, so both runs must give the same
+    # map bit for bit) and 8 all run before a failed check raises
     failed = []
+    maps = []
     for run in (1, 2):
         t0 = time.perf_counter()
         res, tracker, align, rectified = run_loop_room(device, raw, gt, K, grid)
         for name, n in res["launches"].items():
             records[name]["launches"] += n
+        maps.append(room_map_bytes(tracker.engine.map, res["closures"]))
         print(f"loop room run {run}: " + json.dumps(res))
         failed += [f"phase 7 run {run}: {c}" for c in res["checks_failed"]]
         t = res["times"]
@@ -2668,6 +2920,11 @@ def main() -> int:
               f"{t.get('global_ba', {}).get('median_ms', float('nan')):.2f}; BoW db "
               f"{res['bow_db_bytes']} B, vocabulary {res['vocab_bytes']} B; "
               f"{time.perf_counter() - t0:.1f} s, on {card}")
+    same = [k for k in maps[0] if maps[0][k] == maps[1][k]]
+    print(f"phase 7: the two runs' maps equal bit for bit in {same} of {list(maps[0])}")
+    if len(same) != len(maps[0]):
+        failed.append(f"phase 7: the two runs' maps differ in "
+                      f"{[k for k in maps[0] if k not in same]}")
     t0 = time.perf_counter()
     res = run_kidnap(device, tracker, gt, align, rectified)
     for name, n in res["launches"].items():
@@ -2915,7 +3172,8 @@ def main() -> int:
     m = res["matching"]
     print(f"phase 16: matchers on the card equal to the CPU's: {m['same']} ({m['queries']} "
           f"queries, {m['projected_ok']} projected and {m['mutual_ok']} mutual matches), "
-          f"Hamming kernel launches {m['launches']}; {time.perf_counter() - t0:.1f} s, on {card}")
+          f"launches: dense Hamming kernel {m['launches']}, fused matcher "
+          f"{m['projected_launches']}; {time.perf_counter() - t0:.1f} s, on {card}")
     # every kernel of the main paths ran in them
     failed += [f"{name}: no launch on the main paths"
                for name, r in records.items() if r["launches"] == 0]

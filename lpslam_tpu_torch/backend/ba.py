@@ -7,10 +7,13 @@ Two solvers with the JAX package's switch at C*N*P = 2**25:
   same one-hot (C, N, P) contraction as the JAX code, which on the GPU is a
   deterministic matmul; the reduced (6C, 6C) camera system is solved densely.
 - ``bundle_adjust_cg`` (matrix-free Schur + block-Jacobi CG): its segment
-  sums are ``index_add_``. On the CPU that sums in a fixed order; on the GPU
-  float atomics make the order vary from run to run where a landmark has
-  three or more observations, so results vary at the level of fp32 rounding
-  (the tests hold the final cost to 1e-3 relative of the JAX package).
+  sums are ``kernels.linalg.segment_sum`` over one sort of the observations
+  by landmark per solve: each landmark's terms added in observation order,
+  as ``index_add_`` adds them on the CPU, and in that same order on the
+  card, so a solve repeats itself bit for bit there (``index_add_``'s
+  float atomics did not). Empty slots (weight 0) are left out of the sums
+  rather than added to landmark 0. The tests hold the final cost to 1e-3
+  relative of the JAX package.
 
 LM accept/reject stays branch-free (``torch.where`` on the better iterate),
 so an iteration makes no host round trip.
@@ -25,7 +28,7 @@ from ..geometry.camera import PinholeCamera
 from ..geometry.se3 import SE3, se3_compose, se3_exp
 from ..geometry.so3 import hat
 from ..kernels.fast import topk_stable
-from ..kernels.linalg import inv3x3_guarded, inv6x6_spd
+from ..kernels.linalg import inv3x3_guarded, inv6x6_spd, segment_plan, segment_sum
 
 CHI2_2D = 5.991
 _GUARD_TOL = 1e12
@@ -244,24 +247,26 @@ def bundle_adjust_cg(prob: BAProblem, cam: PinholeCamera, iters: int = 10,
     active0 = (prob.obs_lm >= 0) & prob.point_valid[obs_p]
     eye6 = torch.eye(6, dtype=prob.points.dtype, device=dev)
 
-    def segment_sum(vals):
-        out = torch.zeros((P, *vals.shape[2:]), dtype=vals.dtype, device=dev)
-        return out.index_add_(0, flat_lm, vals.reshape(-1, *vals.shape[2:]))
+    # the observations by landmark, once per solve; empty slots left out
+    plan = segment_plan(torch.where(prob.obs_lm >= 0, obs_p, -1), P)
+
+    def landmark_sum(vals):
+        return segment_sum(vals.reshape(-1, *vals.shape[2:]), plan)
 
     def step(carry, gate):
         R, t, points, lam = carry
         r, Jc, Jp, w, active, cost, Hcc, bc, JpTJp, bp_terms = _blocks(
             prob, cam, R, t, points, gate, active0
         )
-        Hpp = segment_sum(JpTJp)
-        bp = segment_sum(bp_terms)
+        Hpp = landmark_sum(JpTJp)
+        bp = landmark_sum(bp_terms)
         Hpp_inv = _point_inverse(prob, Hpp, lam)
         Jpw = Jp * w[..., None, None]
 
         def hpc_apply(x):
             """(C,6) camera vector -> (P,3) sum of J_p^T w J_c x."""
             y = torch.einsum("cnik,ck->cni", Jc, x)
-            return segment_sum(torch.einsum("cnik,cni->cnk", Jpw, y))
+            return landmark_sum(torch.einsum("cnik,cni->cnk", Jpw, y))
 
         def hcp_apply(v):
             """(P,3) point vector -> (C,6) sum of J_c^T w J_p v."""

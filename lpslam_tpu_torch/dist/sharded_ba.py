@@ -22,23 +22,24 @@ import torch
 from ..backend.ba import BAProblem, BAResult, CHI2_2D
 from ..geometry.camera import PinholeCamera
 from ..geometry.se3 import SE3, se3_compose, se3_exp
-from ..kernels.linalg import inv3x3_guarded
+from ..kernels.linalg import inv3x3_guarded, segment_plan, segment_sum
 from .mesh import Mesh, make_mesh
-from .sharded_map import _accept, _local_obs_blocks, _masked_cost, _segment_sum
+from .sharded_map import _accept, _local_obs_blocks, _masked_cost
 
 
 def _local_blocks(cam, R, t, points, obs_lm, obs_uv, obs_sigma2, cam_fixed,
-                  point_valid, gate):
+                  point_valid, gate, plan):
     """This rank's normal-equation partials: Hcc (C,6,6), bc (C,6), Hpp
-    (P,3,3), bp (P,3), Hcp (C,P,6,3), cost, and the active observations."""
+    (P,3,3), bp (P,3), Hcp (C,P,6,3), cost, and the active observations.
+    ``plan``: the segment plan of the slots' landmarks (fixed per solve)."""
     C, Nl = obs_lm.shape
     Pn = points.shape[0]
     Hcc, bc, JpTJp, bp_terms, JcTJp, cost, n_active = _local_obs_blocks(
         cam, R, t, points, obs_lm, obs_uv, obs_sigma2, cam_fixed, gate, point_valid)
     flat_lm = torch.clamp(obs_lm, min=0).to(torch.int64).reshape(-1)
     dt, dev = points.dtype, points.device
-    Hpp = _segment_sum(JpTJp.reshape(-1, 3, 3), flat_lm, Pn)
-    bp = _segment_sum(bp_terms.reshape(-1, 3), flat_lm, Pn)
+    Hpp = segment_sum(JpTJp.reshape(-1, 3, 3), plan)
+    bp = segment_sum(bp_terms.reshape(-1, 3), plan)
     cam_rows = torch.arange(C, device=dev)[:, None].expand(C, Nl).reshape(-1)
     Hcp = torch.zeros((C, Pn, 6, 3), dtype=dt, device=dev).index_put_(
         (cam_rows, flat_lm), JcTJp.reshape(-1, 6, 3), accumulate=True)
@@ -54,10 +55,11 @@ def _dba_impl(prob: BAProblem, cam: PinholeCamera, iters: int, mesh: Mesh) -> BA
     eye3 = torch.eye(3, dtype=dt, device=dev)
     eye6c = torch.eye(6 * C, dtype=dt, device=dev)
     fixed_diag = torch.repeat_interleave(prob.cam_fixed, 6)
+    plan = segment_plan(obs_lm, Pn)
 
     def one_iteration(R, t, points, lam, gate_full):
         parts = _local_blocks(cam, R, t, points, obs_lm, obs_uv, obs_sigma2, prob.cam_fixed,
-                              prob.point_valid, gate_full[:, sl])
+                              prob.point_valid, gate_full[:, sl], plan)
         # the compact normal-equation reduction: one all-reduce of every block
         red = mesh.all_reduce(torch.cat([x.reshape(-1) for x in parts]))
         Hcc, bc, Hpp, bp, Hcp, cost, n_active = (

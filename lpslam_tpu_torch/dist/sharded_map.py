@@ -28,18 +28,8 @@ import torch
 from ..backend.ba import BAProblem, BAResult, CHI2_2D, _cost_and_weights, _project_residuals
 from ..geometry.camera import PinholeCamera
 from ..geometry.se3 import SE3, se3_compose, se3_exp
-from ..kernels.linalg import inv3x3_guarded, inv6x6_spd
+from ..kernels.linalg import inv3x3_guarded, inv6x6_spd, segment_plan, segment_sum
 from .mesh import Mesh, make_mesh
-
-
-def _segment_sum(vals, idx, n: int):
-    """Rows of ``vals`` summed by segment ``idx`` into n rows. On the card
-    ``index_add_`` runs on atomics, so its sums reorder between runs: two
-    identical solves of phase 7's room map landed kf_t 1.7e-3 apart on an
-    H100 80GB HBM3 at 700 W (global BA there is ill-conditioned; the JAX
-    package's own meshes of 1 and 2 land 1.8e-3 apart on its room map)."""
-    out = torch.zeros((n, *vals.shape[1:]), dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, idx, vals)
 
 
 def _local_obs_blocks(cam, R, t, points, obs_lm, obs_uv, obs_sigma2,
@@ -100,8 +90,15 @@ def _sgba_local(prob: BAProblem, cam: PinholeCamera, iters: int, cg_iters: int,
     eye3 = torch.eye(3, dtype=dt, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
 
-    def segment_sum(vals):
-        return _segment_sum(vals.reshape(-1, *vals.shape[2:]), flat_lm, Pn)
+    # one sort of the observations by landmark for the whole solve, empty
+    # slots left out: the sums then add in the same order on every run
+    # (index_add_'s atomics on the card did not, and two solves of one room
+    # map landed kf_t up to 1.05e-2 apart on an H100 80GB HBM3 at 700 W,
+    # tools/card_map_repeat.py)
+    plan = segment_plan(torch.where(prob.obs_lm >= 0, obs_p, -1), Pn)
+
+    def landmark_sum(vals):
+        return segment_sum(vals.reshape(-1, *vals.shape[2:]), plan)
 
     def all_sum(x):
         return mesh.all_reduce(x.reshape(1))[0]
@@ -112,7 +109,7 @@ def _sgba_local(prob: BAProblem, cam: PinholeCamera, iters: int, cg_iters: int,
             prob.cam_fixed, gate, prob.point_valid)
         # the replicated landmark blocks: one all-reduce of the local partials
         red = mesh.all_reduce(torch.cat([
-            segment_sum(JpTJp).reshape(-1), segment_sum(bp_terms).reshape(-1),
+            landmark_sum(JpTJp).reshape(-1), landmark_sum(bp_terms).reshape(-1),
             torch.stack([cost, n_active])]))
         Hpp = red[:Pn * 9].reshape(Pn, 3, 3)
         bp = red[Pn * 9:Pn * 12].reshape(Pn, 3)
@@ -127,7 +124,7 @@ def _sgba_local(prob: BAProblem, cam: PinholeCamera, iters: int, cg_iters: int,
 
         def apply_Hpc(x_loc):
             """(c,6) camera vector -> (P,3) landmark vector, all-reduced."""
-            return mesh.all_reduce(segment_sum(torch.einsum("cnik,ci->cnk", JcTJp, x_loc)))
+            return mesh.all_reduce(landmark_sum(torch.einsum("cnik,ci->cnk", JcTJp, x_loc)))
 
         def apply_Hcp(v):
             """(P,3) landmark vector -> (c,6) camera vector (local)."""

@@ -1,9 +1,54 @@
 """Closed-form small linear algebra (port of lpslam_tpu/kernels/linalg.py):
 batched adjugate 3x3 inverse, a guarded variant for BA point blocks, and
-6x6 SPD inverse/solve via 3x3 block Schur."""
+6x6 SPD inverse/solve via 3x3 block Schur; and the sorted segment sum that
+the solvers' normal equations take their landmark and node blocks from."""
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+
+class SegmentPlan(NamedTuple):
+    """Rows grouped by segment: ``order`` the kept rows by segment id, in
+    source order within a segment (a stable sort); ``offsets`` (n + 1,)
+    where each segment's run starts in ``order``, and where the last one
+    ends (its length)."""
+
+    order: torch.Tensor
+    offsets: torch.Tensor
+
+
+def segment_plan(idx, n: int) -> SegmentPlan:
+    """The plan of ``segment_sum`` for segment ids ``idx`` (M,); a row whose
+    id lies outside [0, n) (a solver's empty slot, -1) is left out of every
+    segment. One sort and one read of the kept rows' count on the host; a
+    solve computes it once, outside its iterations, since its segment ids
+    stay fixed while the values change."""
+    idx = idx.reshape(-1).to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    sorted_idx, order = torch.sort(idx, stable=True)
+    offsets = torch.searchsorted(sorted_idx, torch.arange(n + 1, device=idx.device))
+    return SegmentPlan(order[:int(offsets[-1])], offsets)
+
+
+def segment_sum(vals, plan: SegmentPlan):
+    """(M, ...) rows summed by segment into (n, ...): each segment's rows
+    gathered in ``plan``'s order and added one after another from 0. That
+    is the order of ``index_add_`` on the CPU, so the sums are bit-equal
+    to it there; on the card ``index_add_``'s float atomics add in an order
+    that changes from run to run, and this does not (torch.segment_reduce
+    reduces each segment in a fixed order, one thread per output element
+    for rows of more than one element). Leaving the empty slots out keeps
+    every segment short: a solver's padding, summed into landmark 0 as the
+    ``index_add_`` of a clamped id did, would be one thread's loop over
+    most of the slots. ``unsafe=True`` only skips segment_reduce's check
+    of the offsets, a host read on every call: the plan's rows are exactly
+    the ones its offsets cover. Rows of one element (1-D ``vals``) go
+    through a segmented tree reduction on the card, whose order is not the
+    CPU's; the solvers sum only blocks of (3,), (3, 3) and (7, 7)."""
+    return torch.segment_reduce(vals.index_select(0, plan.order), "sum",
+                                offsets=plan.offsets, axis=0, unsafe=True)
 
 
 def inv3x3(M, eps: float = 0.0):

@@ -1,10 +1,16 @@
 """Binary-descriptor matching (port of lpslam_tpu/kernels/match.py).
 
-The matchers' distances come from ``hamming_matrix``: XOR and popcount of
-the packed words, int32. On the card it is the hand-written CUDA kernel
-(csrc/hamming.cu), on the CPU its plain version
-(``hamming_matrix_reference``, a SWAR popcount); any other device
-raises. There is no fallback. The JAX package's default form,
+Two hand-written CUDA kernels (csrc/hamming.cu) and their plain versions:
+
+- ``hamming_matrix``: XOR and popcount of the packed words, int32, the
+  distances of every matcher but the projected one. On the card the dense
+  kernel (the tensor cores' single-bit AND + popcount product), on the CPU
+  ``hamming_matrix_reference`` (a SWAR popcount).
+- ``match_projected``: tracking's window-masked matcher in one launch on the
+  card (no distance matrix is written), ``match_projected_reference`` on
+  the CPU.
+
+Any other device raises; there is no fallback. The JAX package's default form,
 ``hamming_matrix_mxu`` (the ±1 product d = (256 - a·b) / 2 as an fp32
 matmul, exact because every partial sum is an integer of magnitude <= 256),
 gives the same integers; it stays as an export and as the tests' yardstick,
@@ -26,10 +32,14 @@ WORDS = 8
 BIG = 1e9
 SOURCE = "hamming.cu"
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-_MAX_ROWS = 65535 * 32      # the kernel's grid.y limit times its rows per block
+_PROJECTED_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+_MAX_ROWS = 65535 * 64      # the kernel's grid.y limit times its rows per block
 
 # kernel launches made by hamming_matrix_cuda since the last reset
 LAUNCHES = 0
+# kernel launches made by match_projected_cuda since the last reset
+PROJECTED_LAUNCHES = 0
 
 
 def _unpack_pm1(desc):
@@ -143,10 +153,11 @@ def match_mutual_nn(desc_a, desc_b, valid_a, valid_b,
     return best_b, ok
 
 
-def match_projected(desc_q, uv_q, valid_q, desc_kp, uv_kp, valid_kp,
-                    radius, max_distance: int = 80):
-    """Match queries (projected landmarks) against frame keypoints inside a
-    pixel window. Returns (idx (Nq,) int64, ok (Nq,) bool)."""
+def match_projected_reference(desc_q, uv_q, valid_q, desc_kp, uv_kp, valid_kp,
+                              radius, max_distance: int = 80):
+    """The plain version of ``match_projected``: the (Nq, Nk) distance
+    matrix, masked outside the window and where either side is invalid,
+    then its row argmin (lowest index on ties)."""
     D = _distances(desc_q, desc_kp)
     d2px = torch.sum((uv_q[:, None, :] - uv_kp[None, :, :]) ** 2, dim=-1)
     in_window = d2px <= radius * radius
@@ -155,6 +166,64 @@ def match_projected(desc_q, uv_q, valid_q, desc_kp, uv_kp, valid_kp,
     d1 = torch.gather(D, 1, best[:, None])[:, 0]
     ok = (d1 <= max_distance) & valid_q
     return best, ok
+
+
+def _aligned(x):
+    """``x`` contiguous and 16-byte aligned (the kernel's bulk copies and
+    vector loads need it): a copy where a view starts off the alignment."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def match_projected_cuda(desc_q, uv_q, valid_q, desc_kp, uv_kp, valid_kp,
+                         radius: float, max_distance: int = 80):
+    """The fused CUDA kernel: queries (Nq, 8) int32 / (Nq, 2) float32 /
+    (Nq,) bool and keypoints the same with Nk rows, on one CUDA device;
+    ``radius`` and ``max_distance`` Python numbers (compared in fp32, as
+    PyTorch compares a float32 tensor with a Python scalar). Returns (idx
+    (Nq,) int64, ok (Nq,) bool). Launches nothing when Nq is 0; raises for
+    Nk of 0, as the plain version's argmin does."""
+    global PROJECTED_LAUNCHES
+    tensors = (desc_q, uv_q, valid_q, desc_kp, uv_kp, valid_kp)
+    dev = desc_q.device
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError("match_projected_cuda needs every tensor on one CUDA device")
+    if isinstance(radius, torch.Tensor) or isinstance(max_distance, torch.Tensor):
+        raise TypeError("match_projected_cuda takes radius and max_distance as numbers")
+    nq, nk = desc_q.shape[0], desc_kp.shape[0]
+    for name, x, dtype, shape in (
+            ("desc_q", desc_q, torch.int32, (nq, WORDS)), ("uv_q", uv_q, torch.float32, (nq, 2)),
+            ("valid_q", valid_q, torch.bool, (nq,)),
+            ("desc_kp", desc_kp, torch.int32, (nk, WORDS)),
+            ("uv_kp", uv_kp, torch.float32, (nk, 2)), ("valid_kp", valid_kp, torch.bool, (nk,))):
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {x.dtype} {tuple(x.shape)}, want {dtype} {shape}")
+    if nk == 0:
+        raise IndexError("argmin(): Expected reduction dim 1 to have non-zero size.")
+    idx = torch.empty((nq,), dtype=torch.int64, device=dev)
+    ok = torch.empty((nq,), dtype=torch.bool, device=dev)
+    if nq == 0:
+        return idx, ok
+    args = [_aligned(x) for x in tensors]
+    fn = _cuda.entry(SOURCE, "lpslam_match_projected", _PROJECTED_ARGTYPES)
+    _cuda.launch(fn, dev, *(x.data_ptr() for x in args), idx.data_ptr(), ok.data_ptr(),
+                 nq, nk, float(np.float32(radius * radius)), float(np.float32(max_distance)))
+    PROJECTED_LAUNCHES += 1
+    return idx, ok
+
+
+def match_projected(desc_q, uv_q, valid_q, desc_kp, uv_kp, valid_kp,
+                    radius, max_distance: int = 80):
+    """Match queries (projected landmarks) against frame keypoints inside a
+    pixel window. Returns (idx (Nq,) int64, ok (Nq,) bool): the fused
+    kernel for CUDA tensors, the plain version for CPU ones."""
+    if desc_q.device.type == "cpu":
+        return match_projected_reference(desc_q, uv_q, valid_q, desc_kp, uv_kp, valid_kp,
+                                         radius, max_distance)
+    if desc_q.device.type == "cuda":
+        return match_projected_cuda(desc_q, uv_q, valid_q, desc_kp, uv_kp, valid_kp,
+                                    radius, max_distance)
+    raise ValueError(f"no projected matcher for device {desc_q.device}")
 
 
 def orientation_consistency(angle_a, angle_b, idx, ok, bins: int = 30,

@@ -15,8 +15,12 @@ scalars are 0-d, and torch's forward-mode ``where`` on 0-d operands returns
 float64 tangents (torch 2.13), which breaks the float32 chain.
 
 JAX's ``H.at[ei, :, ej, :].add`` sums duplicate edges. Indexed ``+=`` in
-torch does not (the last write wins), so the blocks go through
-``index_add_`` on a (K*K, 7, 7) view, which sums them.
+torch does not (the last write wins), so the blocks are summed by cell of
+a (K*K, 7, 7) view with ``kernels.linalg.segment_sum``: the four blocks of
+every edge (ii, jj, ij, ij^T) and b's two are concatenated in that order
+and summed in it, over one sort per solve. That is the order of one
+``index_add_`` per block on the CPU, and it repeats bit for bit on the
+card, where ``index_add_``'s float atomics do not.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 from torch.func import jacfwd
 
 from ..geometry.sim3 import Sim3, sim3_compose, sim3_exp, sim3_inverse, sim3_log
+from ..kernels.linalg import segment_plan, segment_sum
 
 
 class PoseGraphProblem(NamedTuple):
@@ -79,6 +84,9 @@ def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 10, damping: float 
     fixed = torch.repeat_interleave(prob.node_fixed, 7)
     eye = torch.eye(7 * K, dtype=prob.node_R.dtype, device=dev)
     R, t, s = prob.node_R, prob.node_t, prob.node_s
+    plan_H = segment_plan(torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei]),
+                          K * K)
+    plan_b = segment_plan(torch.cat([ei, ej]), K)
     costs = []
     for _ in range(iters):
         r, Ji, Jj = _res_and_jac(
@@ -90,14 +98,8 @@ def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 10, damping: float 
         Hij = torch.einsum("eki,e,ekj->eij", Ji, w, Jj)
         bi = torch.einsum("eki,e,ek->ei", Ji, w, r)
         bj = torch.einsum("eki,e,ek->ei", Jj, w, r)
-        H = torch.zeros((K * K, 7, 7), dtype=r.dtype, device=dev)
-        H.index_add_(0, ei * K + ei, Hii)
-        H.index_add_(0, ej * K + ej, Hjj)
-        H.index_add_(0, ei * K + ej, Hij)
-        H.index_add_(0, ej * K + ei, Hij.transpose(-1, -2))
-        b = torch.zeros((K, 7), dtype=r.dtype, device=dev)
-        b.index_add_(0, ei, bi)
-        b.index_add_(0, ej, bj)
+        H = segment_sum(torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]), plan_H)
+        b = segment_sum(torch.cat([bi, bj]), plan_b)
 
         Hm = H.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(7 * K, 7 * K)
         Hm = torch.where(fixed[:, None] | fixed[None, :], eye, Hm + damping * eye)

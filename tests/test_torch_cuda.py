@@ -35,10 +35,21 @@ one; run them there with
   centroid is strong (|m| > 1e3, tests/test_torch_brief_modes.py's bar);
   < 2% of those keypoints' descriptor bits differ (bins flip at their
   edges, near-tied taps flip with the blur's rounding).
-- The Hamming kernel (csrc/hamming.cu) bit-equal to its plain SWAR version
-  at the tracker's 4096 x 1200, at 1 x 1, 257 x 131, all-equal and
+- The Hamming kernel (csrc/hamming.cu, the tensor cores' single-bit
+  product) bit-equal to its plain SWAR version at the tracker's 4096 x 1200,
+  at 1 x 1, 257 x 131, 64 x 128 (one tile), 65 x 1204, all-equal and
   all-complement descriptors, one launch per call and none for 0 x 5; the
   matchers give the same indices and flags with and without the product.
+- The fused projected matcher (csrc/hamming.cu lpslam_match_projected)
+  bit-equal to match_projected_reference on the card and on the CPU, on
+  random inputs and tie-heavy ones (descriptors from a pool of 8), at
+  windows of 25, 6 and 50 px, an odd keypoint count, keypoints over two and
+  three chunks, views off the 16-byte alignment, NaN pixels and pairs on
+  the window's edge; one launch per call, none for Nq = 0; Nk = 0, CPU
+  tensors and a tensor radius raise.
+- The sorted segment sum (kernels/linalg.py) run twice on the card is
+  bit-equal to itself and to the CPU's, and bundle_adjust_cg and
+  correct_loop run twice on the card give the same result bit for bit.
 - ``run_dataset --brief-mode`` on the card (its default device) for each of
   the four modes, on a small room: every frame fed, most tracked, the
   kernels launched (the patch kernel only where the mode uses patches).
@@ -222,7 +233,8 @@ def test_hamming_kernel_matches_plain(cuda_device):
                                 .astype(np.uint32).view(np.int32))
 
     a, b = desc(4096), desc(1200)
-    cases = [(a, b), (a[:1], b[:1]), (a[:257], b[:131]), (b, b), (b, ~b), (a[:33], b[:129])]
+    cases = [(a, b), (a[:1], b[:1]), (a[:257], b[:131]), (b, b), (b, ~b), (a[:33], b[:129]),
+             (a[:64], b[:128]), (a[:65], desc(1204))]
     for x, y in cases:
         before = match.LAUNCHES
         got = match.hamming_matrix(x.to(cuda_device), y.to(cuda_device))
@@ -520,3 +532,117 @@ def test_native_queue_carries_card_tensors_between_threads(cuda_device):
     assert not t.is_alive()
     assert [g[0] is x for g, x in zip(got, sent)] == [True] * len(sent)
     assert [g[1] for g in got] == [256 * 256 * float(i) for i in range(len(sent))]
+
+
+def _projected_inputs(rng, nq, nk, pool=None, spread=12.0):
+    """Queries near keypoints in a 640 x 480 frame; descriptors random with
+    half the queries a keypoint's with bits flipped, or all drawn from a
+    pool (ties everywhere)."""
+    def words(n):
+        return rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+
+    src = rng.integers(0, nk, nq)
+    if pool is None:
+        dk = words(nk)
+        flips = (rng.random((nq, 8)) < 0.5).astype(np.uint32) << rng.integers(
+            0, 32, (nq, 8)).astype(np.uint32)
+        dq = np.where((rng.random(nq) < 0.5)[:, None], dk[src] ^ flips, words(nq))
+    else:
+        table = words(pool)
+        dk, dq = table[rng.integers(0, pool, nk)], table[rng.integers(0, pool, nq)]
+    uk = rng.uniform(0, [640, 480], (nk, 2)).astype(np.float32)
+    uq = (uk[src] + rng.normal(0, spread, (nq, 2))).astype(np.float32)
+    uq[::11, 0] = np.nan
+    uk[::13, 1] = np.nan
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    return [T(dq.view(np.int32)), T(uq), T(rng.random(nq) > 0.1),
+            T(dk.view(np.int32)), T(uk), T(rng.random(nk) > 0.1)]
+
+
+@pytest.mark.parametrize("case", ["random", "pool of 8", "odd", "two chunks", "three chunks",
+                                  "off alignment"])
+def test_projected_matcher_kernel_matches_plain(cuda_device, case):
+    rng = np.random.default_rng(8)
+    nq, nk, pool = {"random": (4096, 1200, None), "pool of 8": (4096, 1200, 8),
+                    "odd": (33, 1201, None), "two chunks": (300, 9001, None),
+                    "three chunks": (257, 17000, 8), "off alignment": (101, 1203, None)}[case]
+    full = _projected_inputs(rng, nq, nk, pool)
+    start = 1 if case == "off alignment" else 0     # views 8 / 1 bytes off on the card
+    args = [x[start:] for x in full]
+    on = [x.to(cuda_device)[start:] for x in full]
+    for radius in (25.0, 6.0, 50.0):
+        want = match.match_projected_reference(*args, radius, 80)
+        before, dense = match.PROJECTED_LAUNCHES, match.LAUNCHES
+        got = match.match_projected(*on, radius, 80)
+        torch.cuda.synchronize()
+        assert match.PROJECTED_LAUNCHES == before + 1 and match.LAUNCHES == dense
+        assert got[0].dtype == torch.int64 and got[1].dtype == torch.bool
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        plain = match.match_projected_reference(*on, radius, 80)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        if radius == 25.0 and nq >= 4096:
+            assert int(want[1].sum()) > 500
+
+
+def test_projected_matcher_kernel_edges(cuda_device):
+    rng = np.random.default_rng(9)
+    args = [x.to(cuda_device) for x in _projected_inputs(rng, 64, 64)]
+    # whole-pixel queries see their own descriptor with 24 bits flipped at
+    # offsets (3, 4) (on the edge of radius 5) and unchanged at (3, 4.0001)
+    dq = torch.from_numpy(rng.integers(0, 2**32, (64, 8), dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32)).to(cuda_device)
+    uq = torch.floor(torch.nan_to_num(args[1], nan=7.0))
+    one = torch.ones(64, dtype=torch.bool, device=cuda_device)
+    edge = [dq, uq, one, torch.cat([dq ^ 7, dq]),
+            torch.cat([uq + torch.tensor([3.0, 4.0], device=cuda_device),
+                       uq + torch.tensor([3.0, 4.0001], device=cuda_device)]),
+            torch.cat([one, one])]
+    got = match.match_projected(*edge, 5.0, 80)
+    want = match.match_projected_reference(*edge, 5.0, 80)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], torch.arange(64, device=cuda_device)) and got[1].all()
+    before = match.PROJECTED_LAUNCHES
+    idx, ok = match.match_projected(*(x[:0] if i < 3 else x for i, x in enumerate(args)),
+                                    25.0, 80)
+    assert idx.shape == ok.shape == (0,) and match.PROJECTED_LAUNCHES == before
+    with pytest.raises(IndexError):
+        match.match_projected(*(x[:0] if i >= 3 else x for i, x in enumerate(args)), 25.0, 80)
+    with pytest.raises(ValueError):
+        match.match_projected_cuda(*(x.cpu() for x in args), 25.0, 80)
+    with pytest.raises(TypeError):
+        match.match_projected_cuda(*args, torch.tensor(25.0, device=cuda_device), 80)
+
+
+@pytest.mark.parametrize("shape", [(3,), (3, 3), (7, 7)], ids=str)
+def test_segment_sum_on_card_repeats_and_equals_cpu(cuda_device, shape):
+    from lpslam_tpu_torch.kernels.linalg import segment_plan, segment_sum
+
+    rng = np.random.default_rng(10)
+    m, n = 153_600, 24_576                    # global BA's observations and landmarks
+    idx = torch.from_numpy(rng.integers(0, n, m) // rng.integers(1, 4, m))
+    vals = torch.from_numpy(rng.normal(0, 1e3, (m, *shape)).astype(np.float32))
+    want = segment_sum(vals, segment_plan(idx, n))
+    plan = segment_plan(idx.to(cuda_device), n)
+    first = segment_sum(vals.to(cuda_device), plan)
+    again = segment_sum(vals.to(cuda_device), segment_plan(idx.to(cuda_device), n))
+    assert torch.equal(first, again)
+    assert torch.equal(first.cpu(), want)
+
+
+def test_solvers_on_card_repeat_bit_for_bit(cuda_device):
+    from lpslam_tpu_torch.backend.ba import bundle_adjust_cg
+    from lpslam_tpu_torch.eval.scaling import build_problem
+    from lpslam_tpu_torch.geometry.camera import PinholeCamera
+    from lpslam_tpu_torch.geometry.sim3 import sim3_exp
+
+    cam = PinholeCamera.make(460.0, 460.0, 376.0, 240.0, device=cuda_device)
+    runs = [bundle_adjust_cg(build_problem(32, 4096, 256, seed=1, device=cuda_device), cam,
+                             iters=6) for _ in range(2)]
+    assert float(runs[0].final_cost) < float(runs[0].initial_cost)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    m = _circle_map(cuda_device)
+    S = sim3_exp(torch.tensor([0.1, -0.05, 0.2, 0.02, -0.03, 0.01, 0.05], device=cuda_device))
+    outs = [detector.correct_loop(m, 11, 1, S.R, S.t, S.s, min_shared=5) for _ in range(2)]
+    for k in ("kf_R", "kf_t", "lm_pos"):
+        assert torch.equal(getattr(outs[0], k), getattr(outs[1], k)), k
