@@ -22,7 +22,11 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    of bytes (each input read once, each output written once) over 3.35 TB/s
    and operations over 33.5 T/s (the card's fp32 rate outside the tensor
    cores, 67 TFLOP/s, counts an FMA as two; these kernels have none); the
-   FAST operations are counted on the timed images (`fast_operations`);
+   FAST operations are counted on the timed images (`fast_operations`).
+   The patch kernel's `library_ms` is one torch.gather over the flattened
+   level with the (B, N * 1024) index built beforehand (the build left out
+   of the time), held equal to the kernel; no single PyTorch call computes
+   the FAST score, its NMS or the per-frame ceiling (null);
 3c. the Hamming kernels of csrc/hamming.cu. The dense matrix (the tensor
    cores' single-bit AND + popcount product; every matcher's distances but
    tracking's) against its plain version (a SWAR popcount) on the card,
@@ -156,6 +160,13 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    kernel for the mutual one, once each) giving the same indices and flags
    as on the CPU (their plain versions) on the room's frames (4096 queries
    x 1200 keypoints projected, and mutual).
+16b. binned with loop closure (LOOP_CONFIG) over all of phase 7's frames,
+   as phase 7 drives them: >= 90% tracked, the map finite after every
+   correction, closures within 1 of the JAX package's CPU run on the same
+   frames and >= 1 where it has one (JAX_BRIEF_LOOP_REF,
+   `tools/jax_brief_reference.py --loop`), no ATE bound; the FAST kernels
+   and the patch kernel on every extraction, the dense Hamming kernel in
+   BoW verify once a closure is accepted.
 Phases 9-12 check that no worker or tracker error was recorded and that
 each of the five kernels launched (phase 10, which neither initializes nor
 maps, all but the dense Hamming matrix); each prints its frames/s and wall
@@ -177,7 +188,7 @@ from the dense Hamming kernel, launched on every path that initializes,
 maps or relocalizes.
 
 The line before the last is the per-kernel JSON record: launches summed
-over the paths of phases 4-14 and 16; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
+over the paths of phases 4-14, 16 and 16b; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
 three levels at B = 16 (the Hamming kernels: at 4096 x 1200); `enqueue_us`
 the mean over them; `levels` the per-level and B = 1 readings. The last
 line is {"ok": true, "device": {...}}.
@@ -249,7 +260,7 @@ def render_room(n_frames: int = LOOP_FRAMES, h: int = 480, w: int = 640):
 
     ds = SyntheticBenchmark(num_frames=n_frames, h=h, w=w, seed=0,
                             turns=1.08 * n_frames / 600.0, fps=LOOP_FPS)
-    raw = np.stack([np.clip(f.image, 0, 255).astype(np.uint8) for f in ds])
+    raw = ds.render_uint8()
     intr = ds.intr
     K = np.array([[intr["fx"], 0, intr["cx"]], [0, intr["fy"], intr["cy"]], [0, 0, 1]])
     grid = undistort_map_radtan(K, intr["dist"], (h, w))
@@ -524,6 +535,14 @@ def check_patch_kernel(device, seed: int = 0):
     def launch_on(x):
         patch.launch_patches(*x)
 
+    def gather_index(img, xy):
+        """The plain version's (B, N * 1024) flat index into each level."""
+        b, h, w = img.shape
+        x0, y0 = patch._corners(xy, h, w)
+        off = torch.arange(patch.PATCH, device=img.device)
+        return ((y0[..., None, None] + off[:, None]) * w
+                + x0[..., None, None] + off[None, :]).reshape(b, -1)
+
     levels = []
     max_err = 0.0
     # the chunk loop's B = CHUNK and the host path's B = 1 at 480x640, and
@@ -547,11 +566,18 @@ def check_patch_kernel(device, seed: int = 0):
                "ms": cuda_ms(lambda: patch.extract_patches_cuda(img, xy)),
                "plain_ms": cuda_ms(lambda: patch.extract_patches_reference(img, xy)),
                "bytes": n_bytes, "bound_ms": bound, "bound_by": by}
+        # the library call: one torch.gather over the flattened level, its
+        # index built beforehand and left out of the time
+        idx, flat = gather_index(img, xy), img.reshape(b, -1)
+        if not torch.equal(torch.gather(flat, 1, idx).reshape(got.shape), got):
+            raise AssertionError(f"torch.gather differs from the patch kernel at {h}x{w} B={b}")
+        rec["library_ms"] = cuda_ms(lambda: torch.gather(flat, 1, idx))
         levels.append(rec)
         print(f"patch {h}x{w} B={b} N={n}: bit-equal, device {warm:.4f} ms (L2-warm), "
               f"{cold:.4f} ms (cold), bound {bound:.4f} ms ({by}), share "
               f"{bound / warm:.2f}; wrapper {rec['enqueue_us']:.1f} us/call, event mean "
-              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library (torch.gather, "
+              f"index prebuilt) {rec['library_ms']:.4f} ms")
     # tail: a keypoint count no block size divides, one frame
     img = torch.from_numpy((rng.random((1, 37, 45)) * 255).astype(np.float32)).to(device)
     xy = torch.from_numpy(rng.uniform(-5, 50, (1, 13, 2)).astype(np.float32)).to(device)
@@ -580,7 +606,7 @@ def kernel_record(name, source, replaces, max_err, levels):
         "plain_ms": total("plain_ms"),
         "bound_ms": bound,
         "bound_by": by,
-        "library_ms": None,
+        "library_ms": total("library_ms") if "library_ms" in chunk[0] else None,
         "device_ms": total("device_ms"),
         "device_cold_ms": total("device_cold_ms"),
         "enqueue_us": total("enqueue_us") / len(chunk),
@@ -1280,27 +1306,46 @@ class _Timed:
                 for k, v in self.ms.items()}
 
 
-def run_loop_room(device, raw, gt, K, grid, config=None):
-    """Phase 7: the room through VSLAMTracker.process_image, then flush().
-    Returns (result dict, tracker); raises on a failed check."""
+def run_loop_room(device, raw, gt, K, grid, config=None, ref=None):
+    """Phase 7 (and 16b with a descriptor mode in `config`): the room
+    through VSLAMTracker.process_image, then flush(). `ref` is the JAX
+    run whose accepted closures the port's are held to: JAX_LOOP_REF when
+    None, with its ATE bound; a descriptor mode's JAX_BRIEF_LOOP_REF entry
+    sets no ATE bound (ROADMAP: no ATE bar after a mono closure). Returns
+    (result dict with the failed checks, tracker, alignment, rectify)."""
     from lpslam_tpu_torch.backend import ba
     from lpslam_tpu_torch.frontend import TrackerStatus
     from lpslam_tpu_torch.frontend.device_loop import ChunkedTracker
     from lpslam_tpu_torch.geometry import PinholeCamera
+    from lpslam_tpu_torch.kernels import match
     from lpslam_tpu_torch.kernels.remap import remap_bilinear
     from lpslam_tpu_torch.loop import detector
     from lpslam_tpu_torch.pipeline import CameraQueueEntry, VSLAMTracker
 
     config = dict(LOOP_CONFIG if config is None else config)
+    ate_bound = None
+    if ref is None:
+        ref, ate_bound = JAX_LOOP_REF, loop_ate_bound()
     grid_d = torch.from_numpy(grid).to(device)
 
     def rectified(t):
         return remap_bilinear(torch.from_numpy(raw[t]).to(device, torch.float32), grid_d)
 
+    finite_after = []
+
     def finite(out):
         m = out[0]
-        if not (torch.isfinite(m.kf_t).all() and torch.isfinite(m.lm_pos).all()):
-            raise AssertionError("non-finite poses or landmarks after a loop correction")
+        finite_after.append(bool(torch.isfinite(m.kf_t).all() and torch.isfinite(m.lm_pos).all()))
+
+    verify_launches = []
+
+    def counted_verify(orig):
+        def verify(self, m, k_new):
+            n0 = match.LAUNCHES
+            out = orig(self, m, k_new)
+            verify_launches.append(match.LAUNCHES - n0)
+            return out
+        return verify
 
     cam = PinholeCamera.make(K[0, 0], K[1, 1], K[0, 2], K[1, 2], device=device)
     tracker = VSLAMTracker(cam, config, device=device)
@@ -1315,6 +1360,8 @@ def run_loop_room(device, raw, gt, K, grid, config=None):
     timed.wrap(ChunkedTracker, "process_chunk", "chunk")
     timed.wrap(VSLAMTracker, "_process_host", "host_frame")
     verdicts, undo = record_closures(detector.LoopCloser)
+    plain_verify = detector.LoopCloser.verify
+    detector.LoopCloser.verify = counted_verify(plain_verify)
     reset_launches()
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
@@ -1323,6 +1370,7 @@ def run_loop_room(device, raw, gt, K, grid, config=None):
         fed = drive_room(tracker, TrackerStatus.TRACKING, CameraQueueEntry, raw, rectified)
         sync()
     finally:
+        detector.LoopCloser.verify = plain_verify
         undo()
         timed.undo()
     loop_s = time.perf_counter() - t0
@@ -1351,23 +1399,34 @@ def run_loop_room(device, raw, gt, K, grid, config=None):
         "vocab_bytes": sum(x.numel() * x.element_size() for x in lc.vocab),
         "launches": launches,
         "extractions": extractions,
+        "verify_hamming_launches": sum(verify_launches),
     }
+    # polar and binned cut their descriptors from the patch kernel's patches;
+    # gather and exact read the moment maps
+    patches = config.get("brief_mode", "polar") in ("polar", "binned")
+    want = {k: LEVELS * extractions for k in EXTRACTION_KERNELS}
+    want["extract_patches"] *= patches
     checks = {
         "ends TRACKING": eng.status == TrackerStatus.TRACKING,
         "tracked >= 0.9": res["tracked_fraction"] >= 0.9,
         "finite map": bool(torch.isfinite(eng.map.kf_t).all() and torch.isfinite(eng.map.lm_pos).all()),
-        "the three extraction kernels on every extraction": all(
-            n == LEVELS * extractions for n in extraction(launches).values()),
+        f"the map finite after every correction ({len(finite_after)})": all(finite_after),
+        f"the extraction kernels on every extraction {want}": extraction(launches) == want,
         # the first TRACKING frame is the one that initialized (two-view, no
         # projected matching); every later one ran track_frame's two
         "the fused projected matcher >= twice per tracked frame after the initializing one": (
             launches["match_projected"] >= 2 * (met["tracked"] - 1)),
     }
-    if JAX_LOOP_REF is not None:
-        n_ref = len(JAX_LOOP_REF["closures"])
+    if closures:
+        # an accepted closure matched its pair through match_mutual_nn
+        checks["the dense Hamming kernel launched in BoW verify"] = (
+            res["verify_hamming_launches"] > 0)
+    n_ref = len(ref["closures"])
+    if n_ref:  # where JAX closes no loop, tracked and finite only
         checks[f"closures {len(closures)} within 1 of JAX's {n_ref}, >= 1"] = (
             len(closures) >= 1 and abs(len(closures) - n_ref) <= 1)
-        checks[f"ATE <= {loop_ate_bound():.4f} m"] = met["ate_m"] <= loop_ate_bound()
+    if ate_bound is not None:
+        checks[f"ATE <= {ate_bound:.4f} m"] = met["ate_m"] <= ate_bound
     res["checks_failed"] = [k for k, ok in checks.items() if not ok]
     return res, tracker, met["align"], rectified
 
@@ -2362,6 +2421,21 @@ JAX_BRIEF_REF = {
 }
 
 
+# phase 16b: binned with loop closure (LOOP_CONFIG) over all of phase 7's
+# frames. `JAX_PLATFORMS=cpu python tools/jax_brief_reference.py --loop` on
+# the CPU, each mode over the same frames: frames fed, tracked, keyframes,
+# accepted closures (k_new, candidate, n_inliers), Sim3 ATE
+JAX_BRIEF_LOOP_REF = {
+    "binned": {"frames": 740, "init_frame": 3, "tracked": 737, "keyframes": 111,
+               "closures": [[112, 16, 139]], "ate_m_sim3": 0.06533037860646013},
+    "gather": {"frames": 740, "init_frame": 3, "tracked": 737, "keyframes": 111,
+               "closures": [[112, 16, 139]], "ate_m_sim3": 0.06533037860646013},
+    "exact": {"frames": 740, "init_frame": 3, "tracked": 737, "keyframes": 111,
+              "closures": [[103, 12, 80], [106, 15, 120], [109, 15, 198], [112, 16, 252]],
+              "ate_m_sim3": 0.03894421862778365},
+}
+
+
 def brief_metrics(engine, gt, fed: int) -> dict:
     """Frames fed, the first tracked frame (initialization), tracked frames
     from it on and their share, keyframes, and the Sim3 ATE of the
@@ -3174,6 +3248,24 @@ def main() -> int:
           f"queries, {m['projected_ok']} projected and {m['mutual_ok']} mutual matches), "
           f"launches: dense Hamming kernel {m['launches']}, fused matcher "
           f"{m['projected_launches']}; {time.perf_counter() - t0:.1f} s, on {card}")
+
+    t0 = time.perf_counter()
+    mode = "binned"
+    res, tracker, _, _ = run_loop_room(device, raw, gt, K, grid,
+                                       config=dict(LOOP_CONFIG, brief_mode=mode),
+                                       ref=JAX_BRIEF_LOOP_REF[mode])
+    del tracker
+    for name, n in res["launches"].items():
+        records[name]["launches"] += n
+    print("loop binned: " + json.dumps(res))
+    failed += [f"phase 16b: {c}" for c in res["checks_failed"]]
+    ref = JAX_BRIEF_LOOP_REF[mode]
+    print(f"phase 16b: {mode} with loop closure, {res['frames']} frames, {res['tracked']} "
+          f"tracked (JAX CPU {ref['tracked']}), closures {res['closures']} (JAX CPU "
+          f"{ref['closures']}), ATE {res['ate_m_sim3']:.4f} m Sim3 (JAX CPU "
+          f"{ref['ate_m_sim3']}; no bound), {res['fps']:.2f} frames/s, launches "
+          f"{res['launches']} (in BoW verify: dense Hamming {res['verify_hamming_launches']}); "
+          f"{time.perf_counter() - t0:.1f} s, on {card}")
     # every kernel of the main paths ran in them
     failed += [f"{name}: no launch on the main paths"
                for name, r in records.items() if r["launches"] == 0]

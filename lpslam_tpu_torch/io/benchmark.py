@@ -92,6 +92,14 @@ def _ray_grid(h: int, w: int, K: np.ndarray, dist: Optional[np.ndarray]):
 
 def _render(planes, rays_cam, R_wc, C, rng=None, photometric=None, frame_t=0.0):
     """Ray-cast one frame. Returns (image float32 (h,w), depth float32 (h,w))."""
+    img, depth = _render_noiseless(planes, rays_cam, R_wc, C, photometric, frame_t)
+    if photometric and rng is not None:
+        img = img + rng.normal(0.0, 2.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.float32), depth
+
+
+def _render_noiseless(planes, rays_cam, R_wc, C, photometric, frame_t):
+    """_render before the sensor noise: (image float64 (h,w), depth float32)."""
     h, w, _ = rays_cam.shape
     d_w = rays_cam.reshape(-1, 3) @ R_wc.T
     img = np.full(h * w, 128.0, np.float64)
@@ -136,9 +144,7 @@ def _render(planes, rays_cam, R_wc, C, rng=None, photometric=None, frame_t=0.0):
         exposure = 1.0 + 0.18 * np.sin(2 * np.pi * frame_t * 2.3)
         gamma = 1.0 + 0.12 * np.sin(2 * np.pi * frame_t * 1.1 + 1.0)
         img = 255.0 * np.clip(img * vignette * exposure / 255.0, 1e-6, 1.0) ** gamma
-        if rng is not None:
-            img = img + rng.normal(0.0, 2.0, img.shape)
-    return np.clip(img, 0, 255).astype(np.float32), depth
+    return img, depth
 
 
 BENCH_CAM = {
@@ -159,6 +165,9 @@ class SyntheticBenchmark:
                  seed: int = 0, stereo: bool = False, with_depth: bool = False,
                  distortion: bool = True, photometric: bool = True,
                  orbit_r: float = 1.2, fps: float = 20.0, turns: float = 1.08):
+        self._args = dict(num_frames=num_frames, h=h, w=w, seed=seed,
+                          distortion=distortion, photometric=photometric,
+                          orbit_r=orbit_r, fps=fps, turns=turns)
         self.turns = turns
         self.num_frames = num_frames
         self.h, self.w = h, w
@@ -207,6 +216,43 @@ class SyntheticBenchmark:
     def __len__(self):
         return self.num_frames
 
+    def render_uint8(self) -> np.ndarray:
+        """Every (left-eye) frame clipped to uint8, (T, H, W): the bytes of
+        iterating the sequence and casting each image. The ray casting is
+        spread over spawned processes, one per `_FRAMES_PER_WORKER` frames
+        (at most 8, at most the cores); the sensor noise is still drawn
+        here, frame by frame from the one stream."""
+        if self.stereo:
+            raise ValueError("render_uint8 renders the left eye of a mono sequence")
+        import multiprocessing as mp
+        import os
+        from concurrent.futures import ProcessPoolExecutor
+
+        workers = min(8, os.cpu_count() or 1, -(-self.num_frames // _FRAMES_PER_WORKER))
+        out = np.empty((self.num_frames, self.h, self.w), np.uint8)
+        # one BLAS thread per worker: the workers' small products would
+        # otherwise oversubscribe the cores. Spawned workers take the
+        # environment as it is when map() starts them.
+        saved = {k: os.environ.get(k) for k in _THREAD_VARS}
+        os.environ.update(dict.fromkeys(_THREAD_VARS, "1"))
+        try:
+            ex = ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn"),
+                                     initializer=_worker_init, initargs=(self._args,))
+            frames = ex.map(_worker_frame, range(self.num_frames), chunksize=4)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        with ex:
+            for i, img in enumerate(frames):
+                if self.photometric:
+                    img = img + self._rng.normal(0.0, 2.0, img.shape)
+                # as __iter__'s float32 image, then cast
+                out[i] = np.clip(img, 0, 255).astype(np.float32).astype(np.uint8)
+        return out
+
     def __iter__(self) -> Iterator[DatasetFrame]:
         """Frames in order. stereo: the right eye is rendered at
         C + R_wc @ [baseline, 0, 0] right after the left one, from the same
@@ -232,3 +278,23 @@ class SyntheticBenchmark:
                 image_right=right,
                 depth=depth if self.with_depth else None,
             )
+
+
+_WORKER_DS = None
+# frames per rendering process: a spawned worker starts in ~2 s (mostly
+# importing torch), ~16 frames' work at 640x480; 32 keeps it under half
+_FRAMES_PER_WORKER = 32
+_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def _worker_init(args: dict) -> None:
+    global _WORKER_DS
+    _WORKER_DS = SyntheticBenchmark(**args)
+
+
+def _worker_frame(i: int) -> np.ndarray:
+    """Frame i of the worker's sequence before the sensor noise."""
+    ds = _WORKER_DS
+    R_wc, C = ds._poses[i]
+    return _render_noiseless(ds._planes, ds._rays, R_wc, C, ds.photometric,
+                             i / max(ds.num_frames - 1, 1))[0]

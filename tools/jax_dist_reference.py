@@ -17,6 +17,12 @@ tools/jax_loop_reference.py does; ~4 min, ~3 GB), then solves
 sharded_global_ba over its map on the virtual meshes (phase 15c's solve);
 the port solves it too on the CPU in gloo worlds of 1 and 2. Prints each
 one's kf_t spread against the JAX mesh of 1.
+
+--map FILE: the same solves on a saved map (mapstore/checkpoint.py's npz,
+which both packages load; `tools/card_map_repeat.py` saves a map that
+leaves 15c's bounds on the card), seen by the room's camera. Prints the costs and kf_t spreads as --room does, and
+whether each solve stays inside 15c's bounds against the JAX mesh of 1 and
+the port's world 2 against its world 1 (chip_smoke.RESIDENT_*).
 """
 from __future__ import annotations
 
@@ -44,7 +50,10 @@ def main(argv=None) -> int:
     p.add_argument("--cg-iters", type=int, default=15)
     p.add_argument("--meshes", default="1,8")
     p.add_argument("--room", action="store_true", help="the spread on phase 7's room map")
+    p.add_argument("--map", default="", help="the spread on a saved map (checkpoint npz)")
     args = p.parse_args(argv)
+    if args.map:
+        return map_spread(args.map, [int(s) for s in args.meshes.split(",")])
     if args.room:
         return room_spread([int(s) for s in args.meshes.split(",")])
 
@@ -98,14 +107,11 @@ def room_spread(meshes) -> int:
     import jax.numpy as jnp
 
     import chip_smoke as smoke
-    from lpslam_tpu.dist import make_mesh
-    from lpslam_tpu.dist.sharded_map import sharded_global_ba
     from lpslam_tpu.frontend.tracker import TrackerStatus
     from lpslam_tpu.geometry import PinholeCamera
     from lpslam_tpu.kernels.remap import remap_bilinear
     from lpslam_tpu.pipeline.queues import CameraQueueEntry
     from lpslam_tpu.pipeline.trackers import VSLAMTracker
-    from lpslam_tpu_torch.dist.mesh import run_world
 
     raw, _, K, grid = smoke.render_room()
     grid_j = jnp.asarray(grid)
@@ -118,16 +124,50 @@ def room_spread(meshes) -> int:
     tracker.attach_device_rectify(grid)
     smoke.drive_room(tracker, TrackerStatus.TRACKING, CameraQueueEntry, raw, rectified)
     m = tracker.engine.map
+    map_np = {k: np.asarray(v) for k, v in m._asdict().items()}
+    print(json.dumps(spread(m, map_np, cam_args, meshes)))
+    return 0
+
+
+def map_spread(path: str, meshes) -> int:
+    from lpslam_tpu.mapstore.checkpoint import load_map
+    from lpslam_tpu_torch.io.benchmark import BENCH_CAM
+
+    cam_args = tuple(float(BENCH_CAM[k]) for k in ("fx", "fy", "cx", "cy"))
+
+    with np.load(path, allow_pickle=False) as data:
+        map_np = {k: data[k] for k in data.files}
+    out = spread(load_map(path), map_np, cam_args, meshes)
+    out["map"] = path
+    print(json.dumps(out))
+    return 0
+
+
+def spread(m, map_np, cam_args, meshes) -> dict:
+    """sharded_global_ba of the JAX map `m` on JAX's virtual meshes, and of
+    its numpy copy in the port's CPU gloo worlds of 1 and 2."""
+    import chip_smoke as smoke
+    from lpslam_tpu.dist import make_mesh
+    from lpslam_tpu.dist.sharded_map import sharded_global_ba
+    from lpslam_tpu.geometry import PinholeCamera
+    from lpslam_tpu_torch.dist.mesh import run_world
+
+    def within(kf_t_diff, cost, cost_ref):
+        return bool(kf_t_diff <= smoke.RESIDENT_SOL_ATOL
+                    and abs(cost - cost_ref) <= smoke.RESIDENT_COST_RTOL * abs(cost_ref))
+
     n_kf = int(m.n_kf)
     out, ref = {"n_kf": n_kf, "jax": {}, "port_cpu": {}}, None
     for n in meshes:
         m2, res = sharded_global_ba(m, PinholeCamera.make(*cam_args), mesh=make_mesh(n))
         kf_t = np.asarray(m2.kf_t)[:n_kf]
-        ref = kf_t if ref is None else ref
+        if ref is None:
+            ref, cost_ref = kf_t, float(res.final_cost)
+        d = float(np.abs(kf_t - ref).max())
         out["jax"][n] = {"initial_cost": float(res.initial_cost),
                          "final_cost": float(res.final_cost),
-                         "kf_t_max_diff_vs_mesh1": float(np.abs(kf_t - ref).max())}
-    map_np = {k: np.asarray(v) for k, v in m._asdict().items()}
+                         "kf_t_max_diff_vs_mesh1": d,
+                         "within_15c_vs_mesh1": within(d, float(res.final_cost), cost_ref)}
     port = {}
     for n in (1, 2):
         port[n] = run_world(_port_room_world, n, map_np, tuple(float(v) for v in cam_args),
@@ -139,8 +179,10 @@ def room_spread(meshes) -> int:
                               "kf_t_max_diff_vs_port_world1":
                                   float(np.abs(port[n]["kf_t"][:n_kf]
                                                - port[1]["kf_t"][:n_kf]).max())}
-    print(json.dumps(out))
-    return 0
+    two = out["port_cpu"][2]
+    two["within_15c_vs_port_world1"] = within(two["kf_t_max_diff_vs_port_world1"],
+                                              two["final_cost"], port[1]["final_cost"])
+    return out
 
 
 if __name__ == "__main__":
