@@ -7,7 +7,7 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
 2. build the hand-written CUDA kernels from csrc/ (patch, FAST+NMS,
    Hamming), one nvcc per source, all
    started together, and the native module (csrc/native_module.cpp, g++)
-   beside them (timed);
+   and the JPEG codec (csrc/jpeg.cpp, g++) beside them (timed);
 3. the patch kernel, 3b. the FAST+NMS kernel in both forms (fixed ceiling,
    and each frame's own ceiling with its max pass), each against its plain
    PyTorch version on the card, at the shapes the main paths give it (B = 16
@@ -67,7 +67,10 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    closure, map emission and a map file; no frame dropped (the 64-slot
    camera queue holds them all), >= 90% of the frames after initialization
    tracked, Sim3 ATE within the JAX package's bound (JAX_PIPELINE_REF), the
-   map file written, one CSV row per landmark;
+   map file written, one CSV row per landmark; with --show-live (unless
+   OpenCV's imshow aborts a process here, tried in a child first): where
+   imshow cannot show (no OpenCV, or the card machine's headless build,
+   which raises) the view turns itself off while the session runs on;
 10. LpSlamManager localizing in phase 9's map (mapping off, loop closure on)
    from buffers, every second one 3-channel BGR, pushes paced to keep < 32
    frames queued, plus a laser scan: the keyframe count stays the loaded
@@ -80,16 +83,21 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    tracked, >= 1 closure accepted and within 1 of the JAX package's count,
    ATE within max(1.5 x JAX, JAX + 0.02 m) of its run (JAX_PIPELINE_REF);
 12. record and replay, no new rendering: (a) the CLI on phase 9's config
-   with --record (every frame JPEG-encoded by the numpy codec on the slam
-   worker): 64 frames, none dropped, >= 90% tracked after init, one .pb with
-   64 camera images, global states and one result per valid result; (b) the
-   same config without its source and --replay of that stream: 64 frames,
-   >= 90% tracked after init, Sim3 ATE within max(1.5 x, + 0.02 m) of the
-   JAX package replaying its own recording (JAX_PIPELINE_REF "replay"), the
-   kernels launched on the replay path; (c) the codec's bytes and pixels on
-   this host against sha256 digests pinned from OpenCV (CODEC_DIGESTS).
-   It prints the median encode and decode ms per 640x480 frame and the
-   replay's frames/s;
+   with --record (every frame JPEG-encoded by the native codec,
+   csrc/jpeg.cpp, on the slam worker): 64 frames, none dropped, >= 90%
+   tracked after init, one .pb with 64 camera images, global states and one
+   result per valid result; (b) the same config without its source and
+   --replay of that stream: 64 frames, >= 90% tracked after init, Sim3 ATE
+   within max(1.5 x, + 0.02 m) of the JAX package replaying its own
+   recording (JAX_PIPELINE_REF "replay"), the kernels launched on the
+   replay path; 12a and 12b count the codec's calls by backend and fail
+   unless every one ran natively; (c) the codec's bytes and pixels on this
+   host against sha256 digests pinned from OpenCV (CODEC_DIGESTS), through
+   the native codec and through the numpy reference, and both codecs timed
+   (median host ms to encode a 640x480 frame of phase 9 at quality 90 and
+   to decode those bytes; after phase 13 renders, the same for an HD720
+   eye). It prints the median encode and decode ms per 640x480 frame on the
+   recording and replay paths and the replay's frames/s;
 13. the live session of examples/zed_live_record.json at HD720 (64 frames
    of the room through that config's fisheye lens, both eyes, 12 cm apart,
    rendered once; JAX_ZED_REF from tools/jax_pipeline_reference.py
@@ -107,7 +115,8 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    cv2.fisheye.stereoRectify, JAX's word count, no closure, >= 0.9
    tracked, ATE (no scale) within the same rule; (c) (a) with the camera
    paced at 30 frames/s: frames pushed, processed, dropped, the camera
-   queue's depth and the slam worker's median ms per frame, no limit;
+   queue's depth and the slam worker's median ms per frame, no limit; 13a
+   and 13c fail unless every JPEG call ran the native codec;
 14. vocabulary training on phase 7's frames: ORB on the card, the 32^3
    tree on lap 1's descriptors (a document per frame) and the lazy flat
    vocabulary (the first 4096, 512 words), each and the shipped one scored
@@ -306,6 +315,42 @@ def record_closures(closer_cls):
 
     closer_cls.apply = apply
     return verdicts, lambda: setattr(closer_cls, "apply", orig)
+
+
+def save_closure_states(closer_cls, directory: str, tag: str, gt, save_map, to_np, at=()):
+    """Save the map the class is about to apply a verdict to, at its first
+    accepted closure and at every verdict whose k_new is in `at`:
+    `<tag>_k<k_new>_map.npz` through the package's
+    mapstore/checkpoint.py::save_map (the JAX keys, so it loads in both
+    packages) and `<tag>_k<k_new>_verdict.npz` (k_new, candidate,
+    n_matches, n_inliers, detected, the Sim3 R, t, s of an accepted one,
+    the ground-truth centre of each keyframe's frame). Works for either
+    package's LoopCloser; `to_np` reads one of its arrays. Returns (the
+    saved path prefixes, undo)."""
+    saved = []
+    orig = closer_cls.apply
+
+    def apply(self, m, verdict, cam=None):
+        r = verdict.result
+        k = int(verdict.k_new)
+        first = bool(r.detected) and not any(s[1] for s in saved)
+        if first or k in at:
+            base = os.path.join(directory, f"{tag}_k{k}")
+            save_map(m, base + "_map.npz")
+            fid = to_np(m.kf_frame_id).astype(np.int64)
+            sim3 = {}
+            if r.detected:
+                S = verdict.S_corr
+                sim3 = {"R": to_np(S.R), "t": to_np(S.t), "s": to_np(S.s)}
+            np.savez(base + "_verdict.npz", k_new=k, candidate=int(r.candidate),
+                     n_matches=int(r.n_matches), n_inliers=int(r.n_inliers),
+                     detected=bool(r.detected), kf_gt=gt[np.clip(fid, 0, len(gt) - 1)],
+                     **sim3)
+            saved.append((base, bool(r.detected)))
+        return orig(self, m, verdict, cam=cam)
+
+    closer_cls.apply = apply
+    return saved, lambda: setattr(closer_cls, "apply", orig)
 
 
 def room_metrics(engine, gt):
@@ -1388,7 +1433,9 @@ def run_loop_room(device, raw, gt, K, grid, config=None, ref=None):
         "keyframes": eng.n_keyframes,
         "landmarks": eng.n_landmarks,
         "closures": closures,
-        "verdicts_named_candidate": len(verdicts),
+        # (k_new, candidate, n_matches, n_inliers, accepted) of every verdict
+        # that named a candidate
+        "verdicts": verdicts,
         "ate_m_sim3": met["ate_m"],
         "err_by_100_frames": met["err_by_100_frames"],
         "state": eng.status.name,
@@ -1593,9 +1640,30 @@ def read_trajectory(path: str) -> list:
     return stamped
 
 
+def live_view_probe() -> str:
+    """What OpenCV's imshow does on this machine, tried in a child process:
+    "absent" (no cv2), "raises" (a headless build, no display), "shows" or
+    "aborts" (a GUI build with no display kills its process)."""
+    import importlib.util
+
+    if importlib.util.find_spec("cv2") is None:
+        return "absent"
+    code = "import cv2, numpy as np; cv2.imshow('probe', np.zeros((4, 4), np.uint8))"
+    try:
+        rc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                            timeout=60).returncode
+    except subprocess.TimeoutExpired:
+        return "aborts"
+    return "shows" if rc == 0 else "raises" if rc > 0 else "aborts"
+
+
 def run_cli_phase(device, images, gt, K, tmp):
-    """Phase 9. Returns (result dict, map file)."""
+    """Phase 9, with --show-live unless OpenCV's imshow would abort the
+    process here (live_view_probe): without OpenCV or a display the live
+    view turns itself off at its first frame and the session carries on.
+    Returns (result dict, map file)."""
     from lpslam_tpu_torch.pipeline import VSLAMTracker
+    from lpslam_tpu_torch.pipeline.manager import SlamManager
 
     map_file = os.path.join(tmp, "map.npz")
     cfg_path = os.path.join(tmp, "phase9.json")
@@ -1604,12 +1672,22 @@ def run_cli_phase(device, images, gt, K, tmp):
     traj, csv = os.path.join(tmp, "traj.txt"), os.path.join(tmp, "map.csv")
     timed = _Timed(device)
     timed.wrap(VSLAMTracker, "_process_host", "host_frame")
+    live_at_stop, orig_stop = [], SlamManager.stop
+    probe = live_view_probe()
+
+    def stop(self):
+        live_at_stop.append(self.show_live)
+        return orig_stop(self)
+
+    SlamManager.stop = stop
     reset_launches()
     try:
         rc, line, wall = run_cli_in(tmp, ["--config", cfg_path, "--export-trajectory", traj,
-                                          "--export-map-csv", csv])
+                                          "--export-map-csv", csv]
+                                    + (["--show-live"] if probe != "aborts" else []))
     finally:
         timed.undo()
+        SlamManager.stop = orig_stop
     launches = read_launches()
     met = trajectory_metrics(read_trajectory(traj), gt, PIPE_FRAMES)
     with open(csv) as f:
@@ -1619,9 +1697,12 @@ def run_cli_phase(device, images, gt, K, tmp):
            "host_frames": host["n"], "host_frame_ms_median": host["median_ms"],
            "fps_host_path": 1e3 / host["median_ms"] if host["n"] else 0.0,
            "launches": launches, "map_file_bytes": os.path.getsize(map_file)
-           if os.path.exists(map_file) else 0}
+           if os.path.exists(map_file) else 0, "show_live_at_stop": live_at_stop,
+           "imshow_here": probe}
     checks = {
         "rc 0, no worker error": rc == 0 and line["error"] == "",
+        f"--show-live (imshow here: {probe}): one session, its view off at the end "
+        "where imshow cannot show": probe in ("shows", "aborts") or live_at_stop == [False],
         f"{PIPE_FRAMES} frames processed (none dropped)": line["frames"] == PIPE_FRAMES,
         ">= 0.9 of the frames after init tracked": met["tracked"] >= 0.9 * met["after"],
         "map file written": res["map_file_bytes"] > 0,
@@ -1785,13 +1866,64 @@ def pb_counts(path: str) -> dict:
     return {"counts": counts, "cameras": cams}
 
 
-def run_record_replay_phase(device, gt, K, tmp):
+def codec_calls() -> dict:
+    """The JPEG codec's calls so far, by operation and backend."""
+    from lpslam_tpu_torch.io import jpeg
+
+    return dict(jpeg.CODEC_CALLS)
+
+
+def codec_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in codec_calls().items()}
+
+
+def codec_native(calls: dict, op: str) -> bool:
+    """No call fell back to the numpy codec, and `op` ("encode" or "decode")
+    ran natively at least once."""
+    return calls["encode_numpy"] == calls["decode_numpy"] == 0 and calls[f"{op}_native"] > 0
+
+
+def codec_ms(img, quality: int = 90) -> dict:
+    """Median host ms of encoding `img` at `quality` and decoding those bytes,
+    with the native codec and with the numpy reference (after one warm-up
+    call each)."""
+    from lpslam_tpu_torch.io import jpeg
+
+    def median_ms(fn, arg, n):
+        fn(arg)
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn(arg)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    data = jpeg.encode_gray(img, quality)
+    return {"size": list(img.shape), "quality": quality, "bytes": len(data),
+            "encode_native_ms": median_ms(lambda x: jpeg.encode_gray(x, quality), img, 20),
+            "encode_numpy_ms": median_ms(lambda x: jpeg.encode_gray_reference(x, quality),
+                                         img, 5),
+            "decode_native_ms": median_ms(jpeg.decode_gray, data, 20),
+            "decode_numpy_ms": median_ms(jpeg.decode_gray_reference, data, 3)}
+
+
+def codec_line(t: dict) -> str:
+    h, w = t["size"]
+    return (f"{w}x{h} at q{t['quality']} ({t['bytes']} B): encode native "
+            f"{t['encode_native_ms']:.3f} ms / numpy {t['encode_numpy_ms']:.2f} ms, decode "
+            f"native {t['decode_native_ms']:.3f} ms / numpy {t['decode_numpy_ms']:.2f} ms "
+            "(medians, host clock)")
+
+
+def run_record_replay_phase(device, gt, K, tmp, frame):
     """Phase 12: (a) the CLI on phase 9's config with --record; (b) the same
     config without its source, --replay of that recording; (c) the codec's
-    bytes against digests pinned from OpenCV."""
+    bytes against digests pinned from OpenCV, through the native codec and
+    the numpy reference, and both timed on `frame` (640x480). 12a and 12b
+    fail unless every JPEG call ran the native codec."""
     import hashlib
 
-    from lpslam_tpu_torch.io.jpeg import decode_gray, encode_gray
+    from lpslam_tpu_torch.io import jpeg
     from lpslam_tpu_torch.pipeline import VSLAMTracker, record
 
     res, checks = {}, {}
@@ -1806,6 +1938,7 @@ def run_record_replay_phase(device, gt, K, tmp):
     # 12a: record
     codec = _Timed(None)
     codec.wrap(record, "_encode_jpeg", "encode")
+    calls = codec_calls()
     reset_launches()
     try:
         rc, line, wall = run_cli_in(rec_dir, ["--config", cfg_path, "--record", "--device",
@@ -1814,6 +1947,7 @@ def run_record_replay_phase(device, gt, K, tmp):
     finally:
         codec.undo()
     launches_a = read_launches()
+    calls_a = codec_since(calls)
     files = [f for f in os.listdir(rec_dir) if f.endswith(".pb")]
     pb_path = os.path.join(rec_dir, files[0]) if len(files) == 1 else ""
     stream = pb_counts(pb_path) if pb_path else {"counts": {}, "cameras": []}
@@ -1823,7 +1957,7 @@ def run_record_replay_phase(device, gt, K, tmp):
                      "messages": stream["counts"], "file_bytes":
                      os.path.getsize(pb_path) if pb_path else 0,
                      "encode_ms_median": enc["median_ms"], "encoded": enc["n"],
-                     "framing": native_framing(pb_path)}
+                     "codec_calls": calls_a, "framing": native_framing(pb_path)}
     checks.update({
         "12a: rc 0, no worker error": rc == 0 and line["error"] == "",
         f"12a: {PIPE_FRAMES} frames processed (none dropped)": line["frames"] == PIPE_FRAMES,
@@ -1835,6 +1969,7 @@ def run_record_replay_phase(device, gt, K, tmp):
         "12a: one result message per valid result":
             stream["counts"].get("result", 0) == line["tracked"],
         "12a: the five kernels launched": all(n > 0 for n in launches_a.values()),
+        f"12a: the native codec on every JPEG call {calls_a}": codec_native(calls_a, "encode"),
     })
 
     # 12b: replay, the same config without its source
@@ -1849,6 +1984,7 @@ def run_record_replay_phase(device, gt, K, tmp):
     codec = _Timed(None)
     codec.wrap(record, "_decode_image", "decode")
     traj = os.path.join(tmp, "traj12b.txt")
+    calls = codec_calls()
     reset_launches()
     try:
         rc, line, wall = run_cli_in(rep_dir, ["--config", cfg_b_path, "--replay", pb_path,
@@ -1858,13 +1994,15 @@ def run_record_replay_phase(device, gt, K, tmp):
         timed.undo()
         codec.undo()
     launches_b = read_launches()
+    calls_b = codec_since(calls)
     met = trajectory_metrics(read_trajectory(traj), gt, PIPE_FRAMES)
     host = timed.summary().get("host_frame", {"n": 0, "median_ms": float("nan")})
     dec = codec.summary().get("decode", {"n": 0, "median_ms": float("nan")})
     res["replay"] = {"cli": line, "rc": rc, **met, "wall_s": wall, "launches": launches_b,
                      "fps_wall": line["frames"] / wall, "host_frames": host["n"],
                      "host_frame_ms_median": host["median_ms"],
-                     "decode_ms_median": dec["median_ms"], "decoded": dec["n"]}
+                     "decode_ms_median": dec["median_ms"], "decoded": dec["n"],
+                     "codec_calls": calls_b}
     bound = pipe_bound("replay")
     checks.update({
         "12b: rc 0, no worker error": rc == 0 and line["error"] == "",
@@ -1872,23 +2010,31 @@ def run_record_replay_phase(device, gt, K, tmp):
         "12b: >= 0.9 of the frames after init tracked": met["tracked"] >= 0.9 * met["after"],
         f"12b: ATE <= {bound:.4f} m": met["ate_m_sim3"] <= bound,
         "12b: the five kernels launched": all(n > 0 for n in launches_b.values()),
+        f"12b: the native codec on every JPEG call {calls_b}": codec_native(calls_b, "decode"),
     })
 
-    # 12c: the codec's bytes on this host
+    # 12c: the codec's bytes on this host, native and numpy
     t0 = time.perf_counter()
-    wrong = []
-    for i, (h, w) in enumerate(CODEC_SIZES):
-        img = codec_image(h, w, i)
-        for q in CODEC_QUALITIES:
-            data = encode_gray(img, q)
-            back = decode_gray(data)
-            got = (hashlib.sha256(data).hexdigest()[:16],
-                   hashlib.sha256(back.tobytes()).hexdigest()[:16] if back is not None else "")
-            if got != CODEC_DIGESTS[(h, w, q)]:
-                wrong.append((h, w, q))
-    res["codec"] = {"cases": len(CODEC_DIGESTS), "wrong": wrong,
-                    "seconds": time.perf_counter() - t0}
-    checks["12c: codec digests equal OpenCV's"] = not wrong
+    wrong = {"native": [], "numpy": []}
+    for backend, (encode, decode) in (
+            ("native", (jpeg.encode_gray, jpeg.decode_gray)),
+            ("numpy", (jpeg.encode_gray_reference, jpeg.decode_gray_reference))):
+        for i, (h, w) in enumerate(CODEC_SIZES):
+            img = codec_image(h, w, i)
+            for q in CODEC_QUALITIES:
+                data = encode(img, q)
+                back = decode(data)
+                got = (hashlib.sha256(data).hexdigest()[:16],
+                       hashlib.sha256(back.tobytes()).hexdigest()[:16] if back is not None
+                       else "")
+                if got != CODEC_DIGESTS[(h, w, q)]:
+                    wrong[backend].append((h, w, q))
+    res["codec"] = {"cases": len(CODEC_DIGESTS), "backend": jpeg.jpeg_backend(),
+                    "build_error": jpeg.jpeg_build_error(), "wrong": wrong,
+                    "seconds": time.perf_counter() - t0,
+                    "times_640x480": codec_ms(np.clip(frame, 0, 255).astype(np.uint8))}
+    checks["12c: the native codec built"] = res["codec"]["backend"] == "native"
+    checks["12c: codec digests equal OpenCV's, native and numpy"] = not any(wrong.values())
     res["checks_failed"] = [k for k, ok in checks.items() if not ok]
     return res
 
@@ -2098,6 +2244,7 @@ def run_zed_cli(device, left, right, gt, tmp, fps: float = 0.0):
     SlamManager.start, SlamManager._work = start, work
     codec = _Timed(None)
     codec.wrap(record, "_encode_jpeg", "encode")
+    calls = codec_calls()
     reset_launches()
     try:
         with standin_cv2(double):
@@ -2129,7 +2276,7 @@ def run_zed_cli(device, left, right, gt, tmp, fps: float = 0.0):
             "worker_ms_median": float(np.median(work_ms)) if work_ms else float("nan"),
             "worker_frames": len(work_ms), "queue_depth_max": max(depth, default=0),
             "encode_ms_median": enc["median_ms"], "encoded": enc["n"],
-            "launches": launches}
+            "codec_calls": codec_since(calls), "launches": launches}
 
 
 def zed_tracker_config():
@@ -2220,6 +2367,10 @@ def zed_checks(a: dict, b: dict, c: dict) -> list:
         "13b: no closure accepted": b["closures"] == [],
         "13b: >= 0.9 tracked": b["tracked"] >= 0.9 * n,
         "13c: rc 0, no worker error": c["rc"] == 0 and c["cli"]["error"] == "",
+        f"13a: the native codec on every JPEG call {a['codec_calls']}": codec_native(
+            a["codec_calls"], "encode"),
+        f"13c: the native codec on every JPEG call {c['codec_calls']}": codec_native(
+            c["codec_calls"], "encode"),
     }
     if JAX_ZED_REF is not None:
         ra, rb = JAX_ZED_REF["cli"], JAX_ZED_REF["rectified"]
@@ -2914,6 +3065,7 @@ def main() -> int:
         return 2
     import lpslam_tpu_torch  # noqa: F401  (sets full-fp32 matmul precision)
     from lpslam_tpu_torch import _cuda, convert, native
+    from lpslam_tpu_torch.io import jpeg
     from lpslam_tpu_torch.kernels.remap import remap_bilinear
 
     device = torch.device("cuda")
@@ -2926,13 +3078,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = ["patch.cu", "fast_nms.cu", "hamming.cu"]
-    with ThreadPoolExecutor(1) as ex:      # g++ for the native module beside nvcc
+    with ThreadPoolExecutor(2) as ex:      # g++ for the native module and codec beside nvcc
         native_build = ex.submit(native.get_native)
+        codec_build = ex.submit(lambda: (jpeg.jpeg_backend(), time.perf_counter() - t0))
         _cuda.load_libraries(sources)
         nvcc_s = time.perf_counter() - t0
         native_build.result()
+        codec_backend, codec_s = codec_build.result()
     print(f"phase 2: built {', '.join(sources)} with parallel nvcc in {nvcc_s:.2f} s; "
-          f"csrc/native_module.cpp with g++ beside them: {native_note()}")
+          f"csrc/native_module.cpp with g++ beside them: {native_note()}; csrc/jpeg.cpp "
+          f"with g++: {codec_backend} after {codec_s:.2f} s"
+          + (f" ({jpeg.jpeg_build_error()})" if codec_backend != "native" else ""))
 
     t0 = time.perf_counter()
     records = {"extract_patches": check_patch_kernel(device)}
@@ -3038,7 +3194,8 @@ def main() -> int:
               f"nav-prior host path {res['fps_host_path']:.2f} frames/s (median "
               f"{res['host_frame_ms_median']:.2f} ms over {res['host_frames']} frames, "
               f"synchronized), wall {res['wall_s']:.1f} s; launches {res['launches']}; "
-              f"on {card}")
+              f"--show-live: the view on at stop {res['show_live_at_stop']} (imshow here: "
+              f"{res['imshow_here']}); on {card}")
         spy = NativeSpy()
         try:
             res = run_localize_phase(device, images, gt_pipe, K_pipe, tmp, map_file)
@@ -3078,7 +3235,7 @@ def main() -> int:
     spy = NativeSpy()
     with tempfile.TemporaryDirectory() as tmp:
         try:
-            res = run_record_replay_phase(device, gt_pipe, K_pipe, tmp)
+            res = run_record_replay_phase(device, gt_pipe, K_pipe, tmp, images[0])
         finally:
             spies["12"] = spy.undo()
     framing = res["record"]["framing"]
@@ -3091,23 +3248,31 @@ def main() -> int:
     ref = JAX_PIPELINE_REF["replay"]
     print(f"phase 12a: CLI --record {a['cli']['frames']} frames, {a['tracked']} tracked of "
           f"{a['after']} after init, {a['file_bytes']} B stream {a['messages']}, encode "
-          f"median {a['encode_ms_median']:.2f} ms per 640x480 frame over {a['encoded']}, "
+          f"median {a['encode_ms_median']:.2f} ms per 640x480 frame over {a['encoded']} "
+          f"(codec calls {a['codec_calls']}), "
           f"wall {a['wall_s']:.1f} s; launches {a['launches']}; on {card}")
     print(f"phase 12b: CLI --replay {b['cli']['frames']} frames, {b['tracked']} tracked of "
           f"{b['after']} after init (JAX CPU {ref['tracked']}), ATE {b['ate_m_sim3']:.4f} m "
           f"Sim3 (JAX CPU {ref['ate_m_sim3']}), {b['cli']['keyframes']} keyframes, "
           f"{b['cli']['landmarks']} landmarks; decode median {b['decode_ms_median']:.2f} ms "
-          f"per frame over {b['decoded']}; {b['fps_wall']:.2f} frames/s over the CLI's wall "
+          f"per frame over {b['decoded']} (codec calls {b['codec_calls']}); "
+          f"{b['fps_wall']:.2f} frames/s over the CLI's wall "
           f"{b['wall_s']:.1f} s, host path median {b['host_frame_ms_median']:.2f} ms; "
           f"launches {b['launches']}; on {card}")
-    print(f"phase 12c: {res['codec']['cases']} codec cases, digests "
-          f"{'equal' if not res['codec']['wrong'] else 'WRONG ' + str(res['codec']['wrong'])}; "
-          f"phase 12 {time.perf_counter() - t0:.1f} s")
+    cc = res["codec"]
+    print(f"phase 12c: {cc['cases']} codec cases through the {cc['backend']} codec and the "
+          f"numpy reference, digests "
+          f"{'equal' if not any(cc['wrong'].values()) else 'WRONG ' + str(cc['wrong'])}; "
+          f"{codec_line(cc['times_640x480'])}; phase 12 {time.perf_counter() - t0:.1f} s, "
+          f"on {card}")
 
     t0 = time.perf_counter()
     zl, zr, zgt = render_zed()
     print(f"rendered the {len(zl)}-frame HD720 fisheye stereo session in "
           f"{time.perf_counter() - t0:.1f} s")
+    hd = codec_ms(np.clip(zl[0], 0, 255).astype(np.uint8))
+    print("codec hd720: " + json.dumps(hd))
+    print(f"phase 12c/13: {codec_line(hd)} (the left eye of the first HD720 frame), on {card}")
     print("phase 13a/13c: the camera is a double behind a stand-in cv2 module (its "
           "VideoCapture serves the rendered frames as side-by-side YUYV, then fails)")
     zed = {}

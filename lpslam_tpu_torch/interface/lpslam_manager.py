@@ -2,7 +2,8 @@
 sources, processors and trackers by name, push images and sensor data,
 register callbacks (reconstruction, JPEG image, navigation requests), use
 the mapping API, record a session or replay one, start and stop, on `device`
-(default cuda). The live view is refused (ROADMAP Queue 1 item 20c).
+(default cuda). The live view (``set_show_live_stream``) shows every 10th
+frame with OpenCV's imshow and turns itself off where that fails.
 """
 from __future__ import annotations
 

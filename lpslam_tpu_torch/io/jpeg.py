@@ -1,5 +1,16 @@
-"""Baseline 8-bit grey JPEG in numpy: the encoder and decoder the record /
-replay path and the image callback use, where the JAX package calls OpenCV.
+"""Baseline 8-bit grey JPEG: the encoder and decoder the record / replay
+path, the image callback and ``add_image_from_buffer(compressed=)`` use,
+where the JAX package calls OpenCV.
+
+``encode_gray`` and ``decode_gray`` run the native codec
+(``csrc/jpeg.cpp``, C++17, built with g++ at first use into ``_build/``
+and called through ctypes, which releases the GIL for the call). The numpy
+codec below stays as its plain reference, ``encode_gray_reference`` and
+``decode_gray_reference``; the two give the same bytes, pixels, None and
+ValueError (``tests/test_torch_jpeg.py``). Where the codec cannot be built,
+the numpy codec runs instead: a warning says so once, ``jpeg_backend()``
+reads "numpy" and ``jpeg_build_error()`` keeps the compiler's output.
+``CODEC_CALLS`` counts the calls by backend.
 
 - ``encode_gray(img_u8, quality)`` writes the bytes of
   ``cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])`` (OpenCV
@@ -8,8 +19,8 @@ replay path and the image callback use, where the JAX package calls OpenCV.
   component at 1x1, the two standard luminance Huffman tables, one scan.
   The samples are edge-replicated to a multiple of 8, transformed by the
   integer forward DCT of libjpeg's ``jfdctint.c`` and quantized by rounding
-  division; the entropy stage is vectorized (symbols from ``np.nonzero``,
-  codes from lookup arrays, bits packed with ``np.packbits``).
+  division; the reference's entropy stage is vectorized (symbols from
+  ``np.nonzero``, codes from lookup arrays, bits packed with ``np.packbits``).
 - ``decode_gray(data)`` returns what ``cv2.imdecode(buf, IMREAD_GRAYSCALE)``
   returns: a uint8 (H, W) image, or None where OpenCV gives none (no JPEG
   signature, a structural error, or data that ends in the middle of a scan).
@@ -24,14 +35,18 @@ replay path and the image callback use, where the JAX package calls OpenCV.
   12-bit files, on RGB, CMYK and 2- or 4-component frames, and on frames
   whose luma is subsampled below a chroma plane.
 
-The entropy decoder is a table-driven Python loop: a 16-bit lookup gives a
-code's symbol and length, and, for AC codes whose extra bits fit the same 16
-bits, the run and the coefficient at once.
+The reference's entropy decoder is a table-driven Python loop: a 16-bit
+lookup gives a code's symbol and length, and, for AC codes whose extra bits
+fit the same 16 bits, the run and the coefficient at once.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import struct
+import threading
+import warnings
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -220,9 +235,8 @@ def _segment(marker: int, payload: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
 
 
-def encode_gray(img, quality: int = 90) -> bytes:
-    """A 2-D uint8 image as baseline JPEG bytes, equal to OpenCV's
-    ``imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])``."""
+def _checked_image(img) -> np.ndarray:
+    """The image as an array, or the ValueError both encoders raise."""
     img = np.asarray(img)
     if img.ndim != 2 or img.dtype != np.uint8 or img.size == 0:
         raise ValueError(f"encode_gray takes a non-empty 2-D uint8 image, got "
@@ -230,6 +244,14 @@ def encode_gray(img, quality: int = 90) -> bytes:
     h, w = img.shape
     if h > 65535 or w > 65535:
         raise ValueError(f"image {w}x{h} exceeds the JPEG limit of 65535")
+    return img
+
+
+def encode_gray_reference(img, quality: int = 90) -> bytes:
+    """The numpy encoder: a 2-D uint8 image as baseline JPEG bytes, equal to
+    OpenCV's ``imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])``."""
+    img = _checked_image(img)
+    h, w = img.shape
     q = _quant_table(quality)
     pad = np.pad(img, ((0, (-h) % 8), (0, (-w) % 8)), mode="edge").astype(np.int64) - 128
     bh, bw = pad.shape[0] // 8, pad.shape[1] // 8
@@ -532,9 +554,9 @@ def _orient(img: np.ndarray, o: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def decode_gray(data) -> Optional[np.ndarray]:
-    """JPEG bytes -> (H, W) uint8, as ``cv2.imdecode(buf, IMREAD_GRAYSCALE)``;
-    None where that returns None."""
+def decode_gray_reference(data) -> Optional[np.ndarray]:
+    """The numpy decoder: JPEG bytes -> (H, W) uint8, as
+    ``cv2.imdecode(buf, IMREAD_GRAYSCALE)``; None where that returns None."""
     data = bytes(data)
     if data[:3] != b"\xff\xd8\xff":
         return None
@@ -616,7 +638,10 @@ class _Decoder:
             elif not (m in (0xCC, 0xDC, 0xFE, 0x01) or 0xD0 <= m <= 0xD7 or 0xE0 <= m <= 0xEF):
                 raise _Corrupt("unknown marker")            # libjpeg: JERR_UNKNOWN_MARKER
         y = self.frame["comps"][0]
-        img = _idct_blocks(np.asarray(self.coefs, np.int64), y["q"])
+        # a luma plane no scan named latched no table: libjpeg's multipliers
+        # stay zero, so its blocks come out mid-grey
+        q = y["q"] if y["q"] is not None else np.zeros(64, np.int64)
+        img = _idct_blocks(np.asarray(self.coefs, np.int64), q)
         bh, bw = y["bh"], y["bw"]
         img = img.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
         return _orient(img[:self.frame["h"], :self.frame["w"]], self.orientation)
@@ -766,3 +791,112 @@ class _Decoder:
                     # that is no restart: the rest of the scan stays zero
                     return pos
         return pos
+
+
+# -- the native codec -----------------------------------------------------------
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "jpeg.cpp"
+
+CODEC_CALLS = {"encode_native": 0, "encode_numpy": 0, "decode_native": 0, "decode_numpy": 0}
+_calls_lock = threading.Lock()
+_lib_lock = threading.Lock()
+_lib_state = {"tried": False, "lib": None, "error": None}
+
+
+def _count(key: str) -> None:
+    with _calls_lock:
+        CODEC_CALLS[key] += 1
+
+
+def _codec():
+    """The native codec's library, built and loaded once per process; None
+    when it cannot be built (warned once, not retried)."""
+    with _lib_lock:
+        if _lib_state["tried"]:
+            return _lib_state["lib"]
+        _lib_state["tried"] = True
+        from ..native import build_library
+
+        path, error, _ = build_library(SOURCE, "lpslam_jpeg")
+        if path is not None:
+            try:
+                lib = ctypes.CDLL(path)
+                i64, p = ctypes.c_int64, ctypes.c_void_p
+                lib.lpslam_jpeg_encode_gray.argtypes = [p, i64, i64, ctypes.c_int, p, i64]
+                lib.lpslam_jpeg_encode_gray.restype = i64
+                lib.lpslam_jpeg_decode_gray.argtypes = [
+                    ctypes.c_char_p, i64, ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                    ctypes.POINTER(i64), ctypes.POINTER(i64), ctypes.POINTER(ctypes.c_int),
+                    ctypes.c_char_p, i64]
+                lib.lpslam_jpeg_decode_gray.restype = ctypes.c_int
+                lib.lpslam_jpeg_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
+                lib.lpslam_jpeg_free.restype = None
+                _lib_state["lib"] = lib
+            except (OSError, AttributeError) as exc:
+                error = f"loading {path}: {exc!r}"
+        if _lib_state["lib"] is None:
+            _lib_state["error"] = error
+            warnings.warn("lpslam_tpu_torch.io.jpeg: the native JPEG codec is unavailable, "
+                          f"the numpy codec runs instead: {error}", RuntimeWarning, stacklevel=3)
+        return _lib_state["lib"]
+
+
+def jpeg_backend() -> str:
+    """"native" when the C++ codec is built and loaded (building it on the
+    first call), else "numpy"."""
+    return "native" if _codec() is not None else "numpy"
+
+
+def jpeg_build_error() -> Optional[str]:
+    """Why the native codec is unavailable (the compiler's output), or None."""
+    return _lib_state["error"]
+
+
+def encode_gray(img, quality: int = 90) -> bytes:
+    """A 2-D uint8 image as baseline JPEG bytes, equal to OpenCV's
+    ``imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])``: the native
+    codec, or ``encode_gray_reference`` where it cannot be built."""
+    img = _checked_image(img)
+    lib = _codec()
+    if lib is None:
+        _count("encode_numpy")
+        return encode_gray_reference(img, quality)
+    img = np.ascontiguousarray(img)
+    h, w = img.shape
+    # a block codes to at most 64 symbols of <= 27 bits, doubled by stuffing
+    cap = 1024 + 512 * ((h + 7) // 8) * ((w + 7) // 8)
+    out = np.empty(cap, np.uint8)
+    n = lib.lpslam_jpeg_encode_gray(img.ctypes.data, h, w, min(max(int(quality), 1), 100),
+                                    out.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError(f"encode_gray: {cap} bytes did not hold a {w}x{h} image")
+    _count("encode_native")
+    return out[:n].tobytes()
+
+
+def decode_gray(data) -> Optional[np.ndarray]:
+    """JPEG bytes -> (H, W) uint8, as ``cv2.imdecode(buf, IMREAD_GRAYSCALE)``;
+    None where that returns None: the native codec, or
+    ``decode_gray_reference`` where it cannot be built."""
+    data = bytes(data)
+    lib = _codec()
+    if lib is None:
+        _count("decode_numpy")
+        return decode_gray_reference(data)
+    _count("decode_native")
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    h, w, o = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int()
+    msg = ctypes.create_string_buffer(256)
+    rc = lib.lpslam_jpeg_decode_gray(data, len(data), ctypes.byref(out), ctypes.byref(h),
+                                     ctypes.byref(w), ctypes.byref(o), msg, len(msg))
+    if rc == 1:
+        return None
+    if rc == 2:
+        raise ValueError(msg.value.decode())
+    if rc != 0:
+        raise MemoryError(f"decode_gray: no memory for the image ({len(data)} bytes of JPEG)")
+    try:
+        img = np.ctypeslib.as_array(out, shape=(h.value, w.value)).copy()
+    finally:
+        lib.lpslam_jpeg_free(out)
+    return _orient(img, o.value)

@@ -13,7 +13,9 @@ callers then fall back to their pure-Python equivalents, which write the
 same bytes and keep the same queue semantics. A failed build is not silent:
 the compiler's output stays in ``native_build_error()`` and is warned about
 once. The library lands in ``lpslam_tpu_torch/_build/`` under a name that
-carries a hash of its source and flags, as ``_cuda.py`` names its kernels.
+carries a hash of its source and flags, as ``_cuda.py`` names its kernels;
+``build_library`` does the same for the port's other C++ sources (the JPEG
+codec of ``io/jpeg.py``).
 """
 from __future__ import annotations
 
@@ -37,36 +39,43 @@ _lock = threading.Lock()
 _state = {"tried": False, "module": None, "error": None, "build_s": None}
 
 
-def _lib_path() -> Path:
-    include = sysconfig.get_paths()["include"]
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join((*CXX_FLAGS, include)).encode())
-    return BUILD_DIR / f"lpslam_native_{digest.hexdigest()[:16]}.so"
+def build_library(source: Path, stem: str, include: str = "") -> tuple:
+    """Compile `source` with g++ (CXX_FLAGS, plus -I`include` when given)
+    into ``_build/<stem>_<hash>.so`` unless that file exists; the hash
+    covers the source, the flags and the include path. Returns (path, None,
+    seconds g++ took or None when it was built earlier) or (None, the
+    compiler's output, None). The file is renamed into place atomically, so
+    a concurrent build never loads a torn one."""
+    flags = (*CXX_FLAGS, *((f"-I{include}",) if include else ()))
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    so_path = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
+    if so_path.exists():
+        return str(so_path), None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = ["g++", *flags, str(source), "-o", str(tmp)]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=180)
+    except (OSError, subprocess.TimeoutExpired) as exc:
+        return None, f"{' '.join(cmd)}: {exc!r}", None
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return None, f"{' '.join(cmd)} exited {res.returncode}:\n{res.stderr}", None
+    os.replace(tmp, so_path)
+    return str(so_path), None, time.perf_counter() - t0
 
 
 def build_native() -> Optional[str]:
     """Compile the extension unless it is built already; return the .so
     path, or None with the reason kept for ``native_build_error()``."""
-    so_path = _lib_path()
-    if so_path.exists():
-        return str(so_path)
-    include = sysconfig.get_paths()["include"]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, f"-I{include}", str(SOURCE), "-o", str(tmp)]
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=180)
-    except (OSError, subprocess.TimeoutExpired) as exc:
-        _state["error"] = f"{' '.join(cmd)}: {exc!r}"
-        return None
-    if res.returncode != 0:
-        _state["error"] = f"{' '.join(cmd)} exited {res.returncode}:\n{res.stderr}"
-        tmp.unlink(missing_ok=True)
-        return None
-    os.replace(tmp, so_path)   # atomic: a concurrent build never loads a torn file
-    _state["build_s"] = time.perf_counter() - t0
-    return str(so_path)
+    so_path, error, seconds = build_library(SOURCE, "lpslam_native",
+                                            sysconfig.get_paths()["include"])
+    if so_path is None:
+        _state["error"] = error
+    elif seconds is not None:
+        _state["build_s"] = seconds
+    return so_path
 
 
 def get_native():

@@ -12,8 +12,9 @@ the last worker error ("" when none; the exit code is then 1). Both honour
 --export-trajectory (TUM format, lpslam frame), --export-map-csv, --record
 (the session to slam_<date>_<time>.pb in the working directory) and
 --record-no-video (the same without camera frames). --replay adds a recorded
-stream as a source to a config. --show-live is refused (ROADMAP Queue 1 item
-20c: it needs a display).
+stream as a source to a config. --show-live shows every 10th frame with
+OpenCV's imshow; without OpenCV or a display the view turns itself off and
+the session carries on.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ def main(argv=None):
     p.add_argument("--record", action="store_true", help="record the session to .pb")
     p.add_argument("--record-no-video", action="store_true",
                    help="record sensor values and results but no camera frames")
-    p.add_argument("--show-live", action="store_true", help="(refused: needs a display)")
+    p.add_argument("--show-live", action="store_true",
+                   help="show every 10th frame (OpenCV imshow)")
     p.add_argument("--store-images", metavar="DIR",
                    help="dump every 10th raw frame as PNG into DIR")
     p.add_argument("--logfile", help="log to file")
@@ -94,7 +96,8 @@ def main(argv=None):
     mgr.set_recording(args.record or args.record_no_video or mgr._record_enabled)
     if args.record_no_video:
         mgr.recorder.record_images = False
-    mgr.show_live = mgr.show_live or args.show_live
+    if args.show_live:
+        mgr.show_live = True
     mgr.on_reconstruction = results.append
     mgr.store_images_dir = args.store_images
     mgr.start()

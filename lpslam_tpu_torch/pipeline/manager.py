@@ -19,8 +19,9 @@ recording goes to ``slam_%Y-%m-%d_%H-%M-%S.pb`` in the working directory.
 Every engine tensor lives on the manager's `device`; a CUDA device that does
 not exist raises.
 
-The live view (``show_live``) is refused with NotImplementedError: it needs
-OpenCV's ``imshow`` and a display (ROADMAP Queue 1 item 20c).
+The live view (``show_live``) shows every 10th frame with OpenCV's
+``imshow``, imported when a frame is shown, and turns itself off at the
+first failure (no OpenCV, no display), as the reference does.
 """
 from __future__ import annotations
 
@@ -63,12 +64,6 @@ from .sources import (
     ZedSdkSource,
 )
 from .trackers import LaserScan, TrackerBase, VSLAMTracker
-
-
-def _live_view_refused() -> NotImplementedError:
-    return NotImplementedError(
-        "the live view (show_live) is refused in lpslam_tpu_torch: it needs OpenCV's "
-        "imshow and a display (ROADMAP Queue 1 item 20c)")
 
 
 def require_device(device) -> torch.device:
@@ -158,13 +153,12 @@ class SlamManager:
         self.apply_config(load_config_file(path))
 
     def apply_config(self, cfg: FullConfig) -> None:
-        if cfg.manager.show_live:
-            raise _live_view_refused()
         self.cameras = dict(cfg.cameras)
         for mk in cfg.markers:
             self.markers[mk.marker_id] = mk
         self._record_enabled = cfg.manager.record
         self.recorder.record_images = cfg.manager.record_images
+        self.show_live = cfg.manager.show_live
         for type_name, conf in cfg.datasources:
             self.add_source_by_name(type_name, conf)
         for type_name, conf in cfg.processors:
@@ -246,8 +240,6 @@ class SlamManager:
     def start(self):
         if self._running:
             return
-        if self.show_live:
-            raise _live_view_refused()
         for tracker in self.trackers:
             tracker.start(self.sensor_queue)
         for src in self.sources:
@@ -491,6 +483,17 @@ class SlamManager:
 
         if self._record_enabled:
             self._record(entry, sensor_values)
+
+        # live view every 10th frame; off at the first failure (no OpenCV,
+        # no display), as the reference does
+        if self.show_live and self._frames % 10 == 0:
+            try:
+                import cv2
+
+                cv2.imshow("lpslam", np.clip(entry.image, 0, 255).astype(np.uint8))
+                cv2.waitKey(1)
+            except Exception:
+                self.show_live = False
 
         # every 10th raw frame as PNG
         if self.store_images_dir and self._frames % 10 == 0:

@@ -17,12 +17,17 @@ SlamManager, CLI and LpSlamManager, on the CPU.
 - A two-slot camera queue keeps the newest frames (drop-oldest); a worker
   exception shows in SlamStatus.error; every refused option and source
   raises NotImplementedError naming its ROADMAP item (the recording,
-  replay and JPEG paths no longer refuse); the default device is the card
-  and a missing one raises.
+  replay, JPEG paths and the live view no longer refuse); the live view
+  shows the JAX manager's frames under a stand-in cv2 and turns itself off
+  where imshow fails; the default device is the card and a missing one
+  raises.
 """
+import contextlib
 import json
 import os
+import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -181,6 +186,76 @@ def test_worker_exception_shows_in_status():
     assert "engine fault" in mgr.get_status().error
 
 
+@contextlib.contextmanager
+def _stub_cv2(fail: bool = False):
+    """A stand-in `cv2` module in sys.modules whose imshow records (window,
+    image) and waitKey records its delay; with `fail`, imshow raises as it
+    does without a display."""
+    stub = types.ModuleType("cv2")
+    stub.shown, stub.waits = [], []
+
+    def imshow(name, img):
+        if fail:
+            raise RuntimeError("no display")
+        stub.shown.append((name, np.array(img)))
+
+    stub.imshow = imshow
+    stub.waitKey = stub.waits.append
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = stub
+    try:
+        yield stub
+    finally:
+        if saved is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved
+
+
+def _show_frames(mgr, frames):
+    """Push `frames` one at a time through a manager with show_live on and
+    wait until each is processed."""
+    mgr.show_live = True
+    mgr.start()
+    for i, img in enumerate(frames):
+        mgr.add_image_from_buffer(i / 20.0, img)
+        t0 = time.time()
+        while mgr.get_status().frames_processed <= i and time.time() - t0 < 10:
+            time.sleep(0.002)
+    processed = mgr.get_status().frames_processed
+    mgr.stop()
+    return processed
+
+
+def test_live_view_as_jax():
+    """show_live shows frames 10, 20, ... as the JAX manager does (the same
+    window, the same uint8 images, waitKey(1) after each), and a failing
+    imshow turns the view off in both while every frame is still processed."""
+    from lpslam_tpu_torch.pipeline.manager import SlamManager
+
+    from lpslam_tpu.pipeline.manager import SlamManager as JManager
+
+    rng = np.random.default_rng(21)
+    frames = [rng.integers(0, 256, (24, 32), dtype=np.uint8) for _ in range(25)]
+    shown = {}
+    for name, make in (("torch", lambda: SlamManager(device="cpu")), ("jax", JManager)):
+        with _stub_cv2() as cv2:
+            assert _show_frames(make(), frames) == len(frames)
+        shown[name] = cv2
+    port, ref = shown["torch"], shown["jax"]
+    assert [n for n, _ in port.shown] == [n for n, _ in ref.shown] == ["lpslam"] * 2
+    for (_, a), (_, b), want in zip(port.shown, ref.shown, (frames[9], frames[19])):
+        assert a.dtype == b.dtype == np.uint8
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, want)
+    assert port.waits == ref.waits == [1, 1]
+    for make in (lambda: SlamManager(device="cpu"), JManager):
+        mgr = make()
+        with _stub_cv2(fail=True):
+            assert _show_frames(mgr, frames) == len(frames)
+        assert mgr.show_live is False
+
+
 def test_refused_options_and_sources(tmp_path):
     from lpslam_tpu_torch.interface import LpSlamManager
     from lpslam_tpu_torch.pipeline import cli
@@ -207,13 +282,16 @@ def test_refused_options_and_sources(tmp_path):
         distortion=np.zeros(4, np.float32), width=160, height=120))
     proc = mgr.add_processor_by_name("Rectify", {})
     assert proc._maps[0].shape == (120, 160, 2)
-    # the live view stays refused (it needs a display); record and replay,
-    # JPEG input and the image callback are ported (tests/test_torch_record.py)
-    mgr.show_live = True
-    with pytest.raises(NotImplementedError, match="item 20c"):
-        mgr.start()
-    with pytest.raises(NotImplementedError, match="item 20c"):
-        cli.main(["--synthetic", "--device", "cpu", "--show-live"])
+    # the live view is ported (test_live_view_as_jax): it no longer refuses
+    # to start, and where imshow fails it turns itself off; record and
+    # replay, JPEG input and the image callback are ported
+    # (tests/test_torch_record.py)
+    with _stub_cv2(fail=True):
+        live = SlamManager(device="cpu")
+        live.show_live = True
+        live.start()
+        live.stop()
+        assert cli.main(["--synthetic", "--device", "cpu", "--show-live", "--frames", "12"]) == 0
     mgr = SlamManager(device="cpu")
     mgr.set_recording(True)
     assert mgr.add_image_from_buffer(0.0, None, compressed=b"\xff\xd8") is False

@@ -324,6 +324,10 @@ def main(argv=None) -> int:
     print(f"rendered {len(raw)} frames in {render_s:.1f} s", file=sys.stderr, flush=True)
     out = report(run_port(raw, ds, device, args), args, device.type, name, render_s,
                  jax_reference(args))
+    ref = out["jax_ref"] or {}
+    for d, r in enumerate(out["drives"]):
+        print(f"drive {d + 1}: closures (k_new, candidate, inliers) {r['closures']} (JAX CPU "
+              f"{ref.get('closures', 'not pinned at this configuration')})", flush=True)
     line = json.dumps(out)
     if args.out:
         with open(args.out, "w") as f:
