@@ -176,6 +176,18 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    `tools/jax_brief_reference.py --loop`), no ATE bound; the FAST kernels
    and the patch kernel on every extraction, the dense Hamming kernel in
    BoW verify once a closure is accepted.
+17. the chunk loop's options on phase 4's frames, each drive 6 chunks from a
+   copy of phase 4's initialized engine (no new rendering or
+   initialization), with the launch counters reset before it and local_ba /
+   cull_and_compact counted per chunk: (a) ChunkedTracker(
+   local_ba_every_chunk=False, boundary_compact=False): keyframes inserted,
+   local_ba and cull_and_compact never called, >= 90% tracked (or no fewer
+   than the JAX package's CPU run of the same frames and options less 1,
+   JAX_OPTIONS_REF); (b) compact_period = 1: a cull at every boundary whose
+   chunk inserted a keyframe and at no other; (c) a 16-keyframe store, which
+   the drive nears, with compact_enabled False for chunks 1-3 (no cull) and
+   True for 4-6 (a cull). Each drive runs the kernels on every extraction
+   and the fused matcher at least twice per frame, as phase 4.
 Phases 9-12 check that no worker or tracker error was recorded and that
 each of the five kernels launched (phase 10, which neither initializes nor
 maps, all but the dense Hamming matrix); each prints its frames/s and wall
@@ -197,7 +209,7 @@ from the dense Hamming kernel, launched on every path that initializes,
 maps or relocalizes.
 
 The line before the last is the per-kernel JSON record: launches summed
-over the paths of phases 4-14, 16 and 16b; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
+over the paths of phases 4-14, 16, 16b and 17; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
 three levels at B = 16 (the Hamming kernels: at 4096 x 1200); `enqueue_us`
 the mean over them; `levels` the per-level and B = 1 readings. The last
 line is {"ok": true, "device": {...}}.
@@ -1203,22 +1215,27 @@ def init_slice(device, mode: str = "mono", h: int = 480, w: int = 640,
         "frames": frames,
         "gt": ds.ground_truth().positions,
         "t": t,
+        "rmap": rmap_np,
         "init_launches": read_launches(),
     }
 
 
 def run_slice(device, mode: str = "mono", levels: int = LEVELS, chunk: int = CHUNK,
-              n_chunks: int = N_CHUNKS, ate_bound: float = 0.10, **kw):
+              n_chunks: int = N_CHUNKS, ate_bound: float = 0.10, keep=None, **kw):
     """Initialize, then run n_chunks chunks through the chunk loop (each
     synchronized). The ATE is Sim3-aligned for mono and aligned without
     scale for the depth modes. Returns a dict of results; raises on a failed
-    check."""
+    check. `keep` (a dict) receives a copy of the initialized engine, the
+    frames (`chunk_of`), the next frame index and the remap grid."""
     from lpslam_tpu_torch.eval import ate_rmse
     from lpslam_tpu_torch.frontend import TrackerStatus
 
     n_init = N_INIT if mode == "mono" else DEPTH_N_INIT
     st = init_slice(device, mode=mode, levels=levels, n_init=n_init,
                     n_after=chunk * n_chunks, **kw)
+    if keep is not None:
+        keep.update(engine=fork_engine(st["engine"]), chunk_of=st["chunk_of"], t=st["t"],
+                    rmap=st["rmap"])
     engine, ct, t = st["engine"], st["ct"], st["t"]
     t0_chunk = t
     chunk_ms = []
@@ -3058,6 +3075,158 @@ def run_resident_phase(map_np, db, cam_args) -> dict:
     return res
 
 
+# phase 17: the chunk loop's options (ChunkedTracker(local_ba_every_chunk=,
+# boundary_compact=), compact_period, compact_enabled) on phase 4's frames,
+# each drive from a copy of phase 4's initialized engine (no new rendering,
+# no new initialization). JAX_OPTIONS_REF: the JAX package on the CPU over
+# the same frames with drive (a)'s options, from
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_chunk_options.py`
+JAX_OPTIONS_REF = {"frames": 96, "init_frames": 4, "tracked": 96, "keyframes_inserted": 19}
+OPTION_CHUNKS = 6
+SMALL_STORE = 16          # (c): a keyframe capacity the drive nears
+
+
+def fork_engine(engine, max_keyframes: int = 0):
+    """A copy of an initialized tracker for another drive: its tensors
+    cloned, no compaction queued. With max_keyframes, its store cut to that
+    many keyframe slots: the initialization's keyframes fit, and the slots
+    past them hold the empty store's values, so the copy holds the store a
+    tracker of that capacity would."""
+    import copy
+
+    pending, engine._pending_compacts = engine._pending_compacts, []
+    try:
+        twin = copy.deepcopy(engine)
+    finally:
+        engine._pending_compacts = pending
+    if max_keyframes:
+        m = twin.map
+        if int(m.n_kf) > max_keyframes:
+            raise AssertionError(f"{int(m.n_kf)} keyframes do not fit {max_keyframes} slots")
+        twin.map = m._replace(**{k: getattr(m, k)[:max_keyframes].clone()
+                                 for k in m._fields if k.startswith("kf_")})
+        twin.cfg = twin.cfg._replace(
+            map_cfg=twin.cfg.map_cfg._replace(max_keyframes=max_keyframes))
+    return twin
+
+
+class CallSpy:
+    """Counts the calls of module functions while installed; undo()
+    restores them. targets: {name: (module, attribute)}."""
+
+    def __init__(self, targets: dict):
+        self.calls = dict.fromkeys(targets, 0)
+        self._undo = []
+        for name, (mod, attr) in targets.items():
+            orig = getattr(mod, attr)
+
+            def counted(*a, _orig=orig, _name=name, **kw):
+                self.calls[_name] += 1
+                return _orig(*a, **kw)
+
+            setattr(mod, attr, counted)
+            self._undo.append((mod, attr, orig))
+
+    def undo(self) -> dict:
+        for mod, attr, orig in reversed(self._undo):
+            setattr(mod, attr, orig)
+        return self.calls
+
+
+def options_drive(device, start: dict, ct_kw: dict, per_chunk=None,
+                  max_keyframes: int = 0) -> dict:
+    """OPTION_CHUNKS chunks through a ChunkedTracker over a copy of phase 4's
+    initialized engine, with the launch counters reset before the drive and
+    read after it, and local_ba / cull_and_compact counted per chunk.
+    per_chunk(ct, i) sets the boundary's attributes before chunk i."""
+    from lpslam_tpu_torch.backend import ba
+    from lpslam_tpu_torch.frontend import TrackerStatus, device_loop
+
+    engine = fork_engine(start["engine"], max_keyframes)
+    ct = device_loop.ChunkedTracker(engine, rectify_map=start["rmap"], **ct_kw)
+    spy = CallSpy({"local_ba": (ba, "local_ba"),
+                   "cull_and_compact": (device_loop, "cull_and_compact")})
+    chunks = []
+    t = start["t"]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for i in range(OPTION_CHUNKS):
+            if per_chunk is not None:
+                per_chunk(ct, i)
+            before = dict(spy.calls)
+            ct.process_chunk(start["chunk_of"](t, CHUNK))
+            t += CHUNK
+            sync()
+            chunks.append({"kf": int(ct._outs[-1].kf_inserted.sum()),
+                           **{k: spy.calls[k] - before[k] for k in spy.calls},
+                           "n_kf": int(engine.map.n_kf)})
+        ct.sync()
+    finally:
+        spy.undo()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    sts, _, pR, pt, kf_ins, _, _ = ct.collect()
+    n = CHUNK * OPTION_CHUNKS
+    return {"frames": n, "tracked": int((sts == int(TrackerStatus.TRACKING)).sum()),
+            "keyframes_inserted": int(kf_ins.sum()), "n_kf": int(engine.map.n_kf),
+            "finite": bool(np.isfinite(pR).all() and np.isfinite(pt).all()),
+            "chunks": chunks, "launches": launches, "fps": n / wall, "wall_s": wall}
+
+
+def run_options_phase(device, start: dict) -> dict:
+    """Phase 17: (a) local_ba_every_chunk=False, boundary_compact=False;
+    (b) compact_period = 1; (c) a 16-keyframe store with compact_enabled
+    False for three chunks, then True. Returns the drives and the failed
+    checks."""
+    a = options_drive(device, start, dict(local_ba_every_chunk=False,
+                                          boundary_compact=False))
+
+    def period_one(ct, i):
+        ct.compact_period = 1
+
+    b = options_drive(device, start, {}, per_chunk=period_one)
+
+    def off_then_on(ct, i):
+        ct.compact_enabled = i >= OPTION_CHUNKS // 2
+
+    c = options_drive(device, start, {}, per_chunk=off_then_on, max_keyframes=SMALL_STORE)
+    max_cull = CHUNK // 3 + 1          # TrackerConfig.kf_min_interval = 3
+    near = SMALL_STORE - (2 * max_cull + 2)
+    off, on = c["chunks"][:OPTION_CHUNKS // 2], c["chunks"][OPTION_CHUNKS // 2:]
+    ref = (JAX_OPTIONS_REF or {}).get("tracked")
+    want = LEVELS * OPTION_CHUNKS
+    checks = {}
+    for key, r in (("a", a), ("b", b), ("c", c)):
+        loop = extraction(r["launches"])
+        checks[f"({key}) the kernels on every extraction ({want} each)"] = (
+            loop == dict.fromkeys(EXTRACTION_KERNELS, want))
+        checks[f"({key}) the fused matcher >= twice per frame"] = (
+            r["launches"]["match_projected"] >= 2 * r["frames"])
+        checks[f"({key}) poses finite"] = r["finite"]
+    checks.update({
+        "(a) keyframes inserted": a["keyframes_inserted"] > 0,
+        "(a) local_ba never called": sum(ch["local_ba"] for ch in a["chunks"]) == 0,
+        "(a) cull_and_compact never called": sum(
+            ch["cull_and_compact"] for ch in a["chunks"]) == 0,
+        f"(a) tracked >= 0.9 or >= JAX's {ref} - 1": (
+            a["tracked"] >= 0.9 * a["frames"] or (ref is not None and a["tracked"] >= ref - 1)),
+        "(b) one cull at every boundary whose chunk inserted a keyframe, none at another": all(
+            ch["cull_and_compact"] == (1 if ch["kf"] else 0) for ch in b["chunks"]),
+        "(b) a cull ran": sum(ch["cull_and_compact"] for ch in b["chunks"]) > 0,
+        "(b) local BA in the loop": sum(ch["local_ba"] for ch in b["chunks"]) > 0,
+        "(b) tracked >= 0.9": b["tracked"] >= 0.9 * b["frames"],
+        f"(c) compact_enabled = False: no cull, though n_kf >= {near} (near capacity)": (
+            sum(ch["cull_and_compact"] for ch in off) == 0
+            and any(ch["n_kf"] >= near and ch["kf"] for ch in off)),
+        "(c) compact_enabled = True: a cull": sum(ch["cull_and_compact"] for ch in on) >= 1,
+        f"(c) the store under its {SMALL_STORE} keyframes": c["n_kf"] <= SMALL_STORE,
+    })
+    return {"a": a, "b": b, "c": c, "near_cap_from": near, "jax_cpu_tracked_a": ref,
+            "checks_failed": [k for k, ok in checks.items() if not ok]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3102,7 +3271,8 @@ def main() -> int:
     print(f"phase 3c: Hamming kernel and fused projected matcher checked in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    paths = [("4", "mono", dict()),
+    start = {}      # phase 4's initialized engine and frames, for phase 17
+    paths = [("4", "mono", dict(keep=start)),
              ("5", "stereo", dict(n_chunks=STEREO_CHUNKS, ate_bound=ate_bound("stereo"))),
              ("6", "rgbd", dict(n_chunks=RGBD_CHUNKS, ate_bound=ate_bound("rgbd")))]
     for phase, mode, kw in paths:
@@ -3430,6 +3600,26 @@ def main() -> int:
           f"{ref['closures']}), ATE {res['ate_m_sim3']:.4f} m Sim3 (JAX CPU "
           f"{ref['ate_m_sim3']}; no bound), {res['fps']:.2f} frames/s, launches "
           f"{res['launches']} (in BoW verify: dense Hamming {res['verify_hamming_launches']}); "
+          f"{time.perf_counter() - t0:.1f} s, on {card}")
+    t0 = time.perf_counter()
+    res = run_options_phase(device, start)
+    for key in "abc":
+        for name, n in res[key]["launches"].items():
+            records[name]["launches"] += n
+    print("options: " + json.dumps(res))
+    failed += [f"phase 17: {c}" for c in res["checks_failed"]]
+    a, b, c = res["a"], res["b"], res["c"]
+    print(f"phase 17: (a) no BA in the loop, no boundary cull: {a['tracked']}/{a['frames']} "
+          f"tracked (JAX CPU {res['jax_cpu_tracked_a']}), {a['keyframes_inserted']} keyframes "
+          f"inserted, local_ba {sum(ch['local_ba'] for ch in a['chunks'])} and "
+          f"cull_and_compact {sum(ch['cull_and_compact'] for ch in a['chunks'])} calls, "
+          f"{a['fps']:.2f} frames/s; (b) compact_period 1: keyframes per chunk "
+          f"{[ch['kf'] for ch in b['chunks']]}, culls {[ch['cull_and_compact'] for ch in b['chunks']]}, "
+          f"{b['tracked']}/{b['frames']} tracked, {b['fps']:.2f} frames/s; (c) a "
+          f"{SMALL_STORE}-keyframe store, compact_enabled off for chunks 1-"
+          f"{OPTION_CHUNKS // 2}: n_kf {[ch['n_kf'] for ch in c['chunks']]}, culls "
+          f"{[ch['cull_and_compact'] for ch in c['chunks']]} (near capacity from "
+          f"{res['near_cap_from']}); launches (a) {a['launches']}; "
           f"{time.perf_counter() - t0:.1f} s, on {card}")
     # every kernel of the main paths ran in them
     failed += [f"{name}: no launch on the main paths"

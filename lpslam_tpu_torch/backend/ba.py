@@ -1,5 +1,5 @@
 """Bundle adjustment: Levenberg-Marquardt with Schur-complement reduction
-(port of lpslam_tpu/backend/ba.py, minus the ablation env hooks).
+(port of lpslam_tpu/backend/ba.py).
 
 Two solvers with the JAX package's switch at C*N*P = 2**25:
 
@@ -20,6 +20,7 @@ so an iteration makes no host round trip.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -31,7 +32,24 @@ from ..kernels.fast import topk_stable
 from ..kernels.linalg import inv3x3_guarded, inv6x6_spd, segment_plan, segment_sum
 
 CHI2_2D = 5.991
-_GUARD_TOL = 1e12
+
+# Ablation hooks (tools/ablate_ba_robustness_torch.py), read once at import
+# as the JAX package reads them: the shipped absolute (Levenberg) damping of
+# the point blocks and inv3x3_guarded's permissive 1e12 gate, or the
+# alternatives (relative / Marquardt damping, a tight gate) in a fresh
+# process. Every BA solver of the package sees them.
+_BA_DAMPING = os.environ.get("LPSLAM_BA_DAMPING", "absolute")
+_BA_GUARD_TOL = float(os.environ.get("LPSLAM_BA_GUARD_TOL", "1e12"))
+
+
+def _damp_point_blocks(Hpp, lam):
+    """Damped per-landmark 3x3 blocks under the configured formulation."""
+    eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
+    if _BA_DAMPING == "relative":
+        # Marquardt: scale each diagonal entry by (1 + lam)
+        diag = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+        return Hpp + eye3 * (lam * diag + 1e-8)[..., :, None]
+    return Hpp + (lam + 1e-8) * eye3
 
 
 class BAProblem(NamedTuple):
@@ -110,8 +128,7 @@ def _blocks(prob, cam, R, t, points, gate, active0):
 
 
 def _point_inverse(prob, Hpp, lam):
-    eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
-    Hpp_inv = inv3x3_guarded(Hpp + (lam + 1e-8) * eye3, tol=_GUARD_TOL)
+    Hpp_inv = inv3x3_guarded(_damp_point_blocks(Hpp, lam), tol=_BA_GUARD_TOL)
     if prob.point_fixed is not None:
         Hpp_inv = torch.where(prob.point_fixed[:, None, None], 0.0, Hpp_inv)
     return Hpp_inv

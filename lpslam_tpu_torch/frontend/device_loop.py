@@ -88,7 +88,8 @@ _EMPTY_OUT = (
 def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
                     mapping_enabled: bool = True, rectify_map=None, mode: str = "mono",
                     focal_x_baseline: float = 0.0, y_margin: float = 2.0,
-                    max_depth: float = 12.0, min_depth: float = 0.1):
+                    max_depth: float = 12.0, min_depth: float = 0.1,
+                    ba_in_scan: bool = True):
     """Build the (carry, frames) -> (carry, FrameOut) step on `device`.
 
     frames per mode:
@@ -101,7 +102,9 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
     mapping_enabled=False inserts no keyframe (localization only).
     rectify_map: optional remap grid applied to the whole chunk before
     extraction — (H, W, 2), or (2, H, W, 2) for stereo, one per eye; rgbd
-    remaps its depth maps with the same grid as the gray images."""
+    remaps its depth maps with the same grid as the gray images.
+    ba_in_scan=False runs no local BA inside the loop; the BA cursor then
+    advances on every keyframe, as in the JAX scan."""
     device = torch.device(device)
     K = cfg.map_cfg.max_keyframes
     M = cfg.map_cfg.max_landmarks
@@ -115,6 +118,9 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
     ba_interval = (
         cfg.scan_ba_min_interval if mode == "mono" else cfg.scan_ba_min_interval_depth
     )
+    # the JAX scan's gate: BA runs, and the rate cap applies, only when the
+    # loop maps and runs BA; otherwise every keyframe counts as BA'd
+    ba_on = mapping_enabled and ba_in_scan and cfg.local_ba_window > 0
 
     def _depth_for_keyframe(left, aux, feats):
         """Depth per left keypoint: (z, ok). aux is the right eye (stereo,
@@ -167,9 +173,10 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
             # far points beyond the depth gate: two-view triangulation
             m2 = triangulate_new_landmarks(m2, cam, cfg)
         ba_due = kf and (
-            ba_interval <= 0 or carry.frame_id - carry.last_ba_frame >= ba_interval
+            not ba_on or ba_interval <= 0
+            or carry.frame_id - carry.last_ba_frame >= ba_interval
         )
-        if ba_due and cfg.local_ba_window > 0:
+        if ba_due and ba_on:
             from ..backend.ba import local_ba
 
             m2 = local_ba(
@@ -245,13 +252,20 @@ class ChunkedTracker:
         statuses, n_inl, poses_R, poses_t, kf, sig_p, sig_r = ct.collect()
     """
 
-    # the redundancy cull runs every COMPACT_PERIOD-th chunk boundary; the
-    # capacity cull whenever the store nears its keyframe capacity
-    COMPACT_PERIOD = 8
-
-    def __init__(self, engine: MonoTracker, rectify_map=None):
+    def __init__(self, engine: MonoTracker, local_ba_every_chunk: bool = True,
+                 rectify_map=None, boundary_compact: bool = True):
         self.engine = engine
         self.device = engine.device
+        # local_ba_every_chunk=False: no local BA inside the loop
+        self.local_ba_every_chunk = local_ba_every_chunk
+        # the boundary's keyframe cull + compaction, read at every chunk;
+        # compact_enabled=False holds the store's slots still (e.g. while a
+        # loop-closure snapshot must keep them); the redundancy cull runs
+        # every compact_period-th boundary, the capacity cull whenever the
+        # store nears its keyframe capacity
+        self.boundary_compact = boundary_compact and engine.cfg.kf_culling
+        self.compact_enabled = True
+        self.compact_period = 8
         self._boundary_count = 0
         if isinstance(engine, RGBDTracker):
             mode, extra = "rgbd", dict(
@@ -277,7 +291,8 @@ class ChunkedTracker:
         e = self.engine
         self._scan = make_chunk_step(
             e.cam, e.cfg, self.device, mask=e.mask, mapping_enabled=e.mapping_enabled,
-            rectify_map=self._rectify_map, mode=self.mode, **self._mode_kw,
+            rectify_map=self._rectify_map, mode=self.mode,
+            ba_in_scan=self.local_ba_every_chunk, **self._mode_kw,
         )
 
     @property
@@ -326,15 +341,15 @@ class ChunkedTracker:
 
         # chunk boundary: multi-pass keyframe cull + compaction when the chunk
         # inserted a keyframe and the store nears capacity or the periodic
-        # quality cull is due (local BA already ran inside the loop)
-        if e.cfg.kf_culling:
+        # quality cull is due (local BA, when on, ran inside the loop)
+        if self.boundary_compact:
             max_cull = n_frames // max(e.cfg.kf_min_interval, 1) + 1
             self._boundary_count += 1
-            periodic = (self._boundary_count % self.COMPACT_PERIOD) == 0
+            periodic = (self._boundary_count % self.compact_period) == 0
             if bool(out.kf_inserted.any()):
                 kf_cap = e.map.kf_valid.shape[0]
                 near_cap = int(e.map.n_kf) >= kf_cap - (2 * max_cull + 2)
-                if near_cap or periodic:
+                if self.compact_enabled and (near_cap or periodic):
                     res = cull_and_compact(
                         e.map, keep_latest=e.cfg.kf_cull_keep_latest,
                         redundancy=e.cfg.kf_cull_redundancy,

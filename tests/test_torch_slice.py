@@ -119,6 +119,13 @@ def test_precision_flags():
     assert lpslam_tpu_torch.__version__
 
 
+# the port's tools (tools/*_torch.py and their shared module) import no JAX
+# either: the card's machine has none
+PORT_TOOLS = ("profile_chunk_torch", "profile_ba_torch", "profile_ba_parts_torch",
+              "profile_ba_opts_torch", "profile_ba_convergence_torch",
+              "ablate_ba_robustness_torch", "cpu_anchor_torch", "torch_bench_point")
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -126,6 +133,8 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(lpslam_tpu_torch.__path__, "
         "'lpslam_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "sys.path.insert(0, 'tools')\n"
+        f"for n in {PORT_TOOLS!r}: importlib.import_module(n)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'lpslam_tpu')]\n"
         "assert not bad, bad\n"
         "assert len(names) >= 25, names\n"
