@@ -188,6 +188,17 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    the drive nears, with compact_enabled False for chunks 1-3 (no cull) and
    True for 4-6 (a cull). Each drive runs the kernels on every extraction
    and the fused matcher at least twice per frame, as phase 4.
+18. the port's benchmark, `bench_torch.measure` (bench.py's protocol), at
+   one window of 32 frames plus its floor, on phase 4's frames (host
+   initialization, two warm-up chunks, the upload probe, the window, the
+   floor; no new rendering), the launch counters reset before it and read
+   at each stage: state TRACKING, tracking_fraction >= 0.9, the line's
+   keys bench.py's (BENCH_LINE_KEYS, BENCH_DETAIL_KEYS) plus `device` and
+   `hardware`, frame_ms_median x frames within 20% of the window's wall
+   (CUDA events against the host clock), transport_bound false, the
+   extraction kernels once per level per chunk of the window and the fused
+   matcher at least twice per window frame, the dense Hamming kernel in
+   initialization.
 Phases 9-12 check that no worker or tracker error was recorded and that
 each of the five kernels launched (phase 10, which neither initializes nor
 maps, all but the dense Hamming matrix); each prints its frames/s and wall
@@ -209,7 +220,7 @@ from the dense Hamming kernel, launched on every path that initializes,
 maps or relocalizes.
 
 The line before the last is the per-kernel JSON record: launches summed
-over the paths of phases 4-14, 16, 16b and 17; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
+over the paths of phases 4-14 and 16-18; `device_ms`, `bound_ms`, `ms` and `plain_ms` summed over the
 three levels at B = 16 (the Hamming kernels: at 4096 x 1200); `enqueue_us`
 the mean over them; `levels` the per-level and B = 1 readings. The last
 line is {"ok": true, "device": {...}}.
@@ -1235,7 +1246,7 @@ def run_slice(device, mode: str = "mono", levels: int = LEVELS, chunk: int = CHU
                     n_after=chunk * n_chunks, **kw)
     if keep is not None:
         keep.update(engine=fork_engine(st["engine"]), chunk_of=st["chunk_of"], t=st["t"],
-                    rmap=st["rmap"])
+                    rmap=st["rmap"], frames=st["frames"])
     engine, ct, t = st["engine"], st["ct"], st["t"]
     t0_chunk = t
     chunk_ms = []
@@ -3227,6 +3238,61 @@ def run_options_phase(device, start: dict) -> dict:
             "checks_failed": [k for k, ok in checks.items() if not ok]}
 
 
+# phase 18: bench_torch.measure, the port's bench.py, at one window of
+# BENCH_WINDOW_FRAMES plus its floor on phase 4's frames (init <= 16, two
+# warm-up chunks, the window and the floor need at most 112: none rendered).
+# BENCH_LINE_KEYS: the keys of bench.py's line, which the port's repeats.
+BENCH_WINDOW_FRAMES = 32
+BENCH_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "detail")
+BENCH_DETAIL_KEYS = (
+    "keypoints", "levels", "resolution", "chunk", "io_threads", "frames_per_window",
+    "window_fps", "window_fps_best", "window_fps_worst", "windows_retried", "scan_only_fps",
+    "cpu_anchor_fps", "vs_cpu_anchor", "upload_probe_ms_per_frame",
+    "window_vs_compute_floor", "transport_bound", "tracking_fraction", "median_inliers",
+    "keyframes", "landmarks", "state", "frame_ms_median", "frame_ms_p95")
+
+
+def run_bench_phase(device, frames) -> dict:
+    """Phase 18: bench_torch.measure on `frames` (phase 4's), with the
+    launch counters reset before it and read at each stage. Returns the
+    line, the launches by stage and the failed checks."""
+    import bench_torch
+
+    point = bench_torch.bench_point(device, CHUNK, 1, BENCH_WINDOW_FRAMES, frames=frames)
+    seen = {}
+    reset_launches()
+    line = bench_torch.measure(chunk=CHUNK, windows=1, frames_per_window=BENCH_WINDOW_FRAMES,
+                               point=point,
+                               mark=lambda stage: seen.setdefault(stage, read_launches()))
+    launches = read_launches()
+    stages = list(seen)
+    by_stage = {a: {k: seen[b][k] - seen[a][k] for k in launches}
+                for a, b in zip(stages, stages[1:])}
+    d = line["detail"]
+    n = d["frames_per_window"]
+    wall_ms = n / line["value"] * 1e3
+    window = by_stage["windows"]
+    want = LEVELS * (n // CHUNK)
+    checks = {
+        "state TRACKING": d["state"] == "TRACKING",
+        "tracking_fraction >= 0.9": d["tracking_fraction"] >= 0.9,
+        "the line's keys are bench.py's": tuple(line) == BENCH_LINE_KEYS,
+        "detail's keys are bench.py's plus device, hardware": (
+            set(d) == set(BENCH_DETAIL_KEYS) | {"device", "hardware"}),
+        "one window, none retried": len(d["window_fps"]) == 1 and d["windows_retried"] == 0,
+        "frame_ms_median * frames within 20% of the window's wall": (
+            abs(d["frame_ms_median"] * n - wall_ms) <= 0.2 * wall_ms),
+        "transport_bound false": d["transport_bound"] is False,
+        f"the extraction kernels in the window, {want} each": (
+            extraction(window) == dict.fromkeys(EXTRACTION_KERNELS, want)),
+        f"the fused matcher >= twice per window frame ({2 * n})": (
+            window["match_projected"] >= 2 * n),
+        "the dense Hamming kernel in initialization": by_stage["init"]["hamming_matrix"] > 0,
+    }
+    return {"line": line, "launches": launches, "by_stage": by_stage, "wall_ms": wall_ms,
+            "checks_failed": [k for k, ok in checks.items() if not ok]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3621,6 +3687,20 @@ def main() -> int:
           f"{[ch['cull_and_compact'] for ch in c['chunks']]} (near capacity from "
           f"{res['near_cap_from']}); launches (a) {a['launches']}; "
           f"{time.perf_counter() - t0:.1f} s, on {card}")
+    t0 = time.perf_counter()
+    res = run_bench_phase(device, start["frames"])
+    for name, n in res["launches"].items():
+        records[name]["launches"] += n
+    print("bench: " + json.dumps(res["line"]))
+    failed += [f"phase 18: {c}" for c in res["checks_failed"]]
+    d = res["line"]["detail"]
+    print(f"phase 18: bench_torch.measure, 1 window of {d['frames_per_window']} frames: "
+          f"{res['line']['value']:.2f} frames/s (wall {res['wall_ms']:.1f} ms), floor "
+          f"{d['scan_only_fps']:.2f}, frame_ms median {d['frame_ms_median']:.2f} / p95 "
+          f"{d['frame_ms_p95']:.2f} (CUDA events), upload probe "
+          f"{d['upload_probe_ms_per_frame']:.4f} ms/frame, tracking {d['tracking_fraction']}, "
+          f"{d['keyframes']} keyframes, {d['landmarks']} landmarks, state {d['state']}; "
+          f"launches by stage {res['by_stage']}; {time.perf_counter() - t0:.1f} s, on {card}")
     # every kernel of the main paths ran in them
     failed += [f"{name}: no launch on the main paths"
                for name, r in records.items() if r["launches"] == 0]

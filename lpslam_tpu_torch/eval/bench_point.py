@@ -1,6 +1,7 @@
-"""The operating point the port's profile tools share, and how they time.
+"""The operating point that bench_torch.py and the port's profile tools
+(tools/*_torch.py) share, and how the tools time.
 
-bench.py's point, as tools/profile_chunk.py, profile_ba.py and
+bench.py's point, as bench.py, tools/profile_chunk.py, profile_ba.py and
 cpu_anchor.py set it up for the JAX package: the 640x480 ray-cast room
 (`SyntheticBenchmark(seed=0, turns=1.08 * frames / 556)`, lens distortion)
 as uint8 frames, undistorted on the device by
@@ -11,15 +12,12 @@ lpslam_tpu_torch (and numpy, torch).
 """
 from __future__ import annotations
 
-import os
 import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 N_INIT = 16
 MAX_KEYFRAMES, MAX_LANDMARKS = 128, 24576
@@ -110,10 +108,12 @@ def synchronizer(device: torch.device):
 
 class BenchPoint:
     """The rendered room, its rectifier and the tracker configuration.
-    `total` frames are rendered as uint8 (the JAX tools' bytes); every
-    `engine()` call initializes a new MonoTracker on the host path."""
+    `total` frames are rendered as uint8 (the JAX tools' bytes), unless
+    `frames` hands in a rendering of the same room already made (uint8,
+    (T, height, width)); every `engine()` call initializes a new MonoTracker
+    on the host path."""
 
-    def __init__(self, args, total: int, device: torch.device):
+    def __init__(self, args, total: int, device: torch.device, frames=None):
         from lpslam_tpu_torch.eval.run_dataset import build_rectifier
         from lpslam_tpu_torch.frontend import TrackerConfig
         from lpslam_tpu_torch.io import SyntheticBenchmark
@@ -123,7 +123,12 @@ class BenchPoint:
         t0 = time.perf_counter()
         ds = SyntheticBenchmark(num_frames=total, h=args.height, w=args.width, seed=0,
                                 turns=1.08 * total / 556.0)
-        self.frames = ds.render_uint8()
+        if frames is None:
+            frames = ds.render_uint8()
+        elif frames.dtype != np.uint8 or frames.shape[1:] != (args.height, args.width):
+            raise ValueError(f"frames {frames.dtype} {frames.shape[1:]} are not uint8 "
+                             f"({args.height}, {args.width})")
+        self.frames = frames
         self.render_s = time.perf_counter() - t0
         self.device = device
         self.proc, self.cam, _ = build_rectifier(ds.intr, "mono", device=device)

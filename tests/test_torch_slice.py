@@ -119,11 +119,11 @@ def test_precision_flags():
     assert lpslam_tpu_torch.__version__
 
 
-# the port's tools (tools/*_torch.py and their shared module) import no JAX
-# either: the card's machine has none
+# the port's tools (tools/*_torch.py) and its benchmark (bench_torch.py, at
+# the root) import no JAX either: the card's machine has none
 PORT_TOOLS = ("profile_chunk_torch", "profile_ba_torch", "profile_ba_parts_torch",
               "profile_ba_opts_torch", "profile_ba_convergence_torch",
-              "ablate_ba_robustness_torch", "cpu_anchor_torch", "torch_bench_point")
+              "ablate_ba_robustness_torch", "cpu_anchor_torch", "bench_torch")
 
 
 def test_port_imports_no_jax():

@@ -31,7 +31,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CONFIGS = [
     # (name, damping, guard_tol)
@@ -106,7 +106,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--child"]:
         return child(argv[1], argv[3:])
-    import torch_bench_point as bp
+    from lpslam_tpu_torch.eval import bench_point as bp
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")

@@ -6,7 +6,7 @@ this tool's purpose).
     python3 tools/cpu_anchor_torch.py --frames 16 --width 160 --height 120 \\
         --keypoints 256 --chunk 8
 
-At the bench operating point (tools/torch_bench_point.py: 640x480 room, 1200
+At the bench operating point (lpslam_tpu_torch/eval/bench_point.py: 640x480 room, 1200
 keypoints, 3 levels, MapConfig(128, 24576, 1200), the whole chunk loop with
 local BA and the boundary's compaction): 16 init frames, one chunk of
 warm-up, then --frames = 48 measured frames in chunks of 16. Prints one
@@ -22,11 +22,11 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-import torch_bench_point as bp  # noqa: E402
+from lpslam_tpu_torch.eval import bench_point as bp  # noqa: E402
 
 
 def measure(args) -> dict:

@@ -25,9 +25,9 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import torch_bench_point as bp  # noqa: E402
+from lpslam_tpu_torch.eval import bench_point as bp  # noqa: E402
 
 WINDOW = 6
 

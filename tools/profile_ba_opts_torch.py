@@ -24,12 +24,12 @@ import json
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import torch_bench_point as bp  # noqa: E402
+from lpslam_tpu_torch.eval import bench_point as bp  # noqa: E402
 
 C, N, Pn, REPS = 6, 1200, 4096, 50
 FX, CX, CY = 460.0, 320.0, 240.0

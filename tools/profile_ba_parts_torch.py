@@ -6,7 +6,7 @@ through lpslam_tpu_torch on the card: tools/profile_ba_parts.py's pieces.
 
 Shapes C = 6 cameras, N = 1200 observations per camera, Pn = 4096 points;
 inputs drawn from numpy's default_rng(0) in the JAX tool's order. Each piece
-gets two times (tools/torch_bench_point.py::time_piece): `wall_ms`, the
+gets two times (lpslam_tpu_torch/eval/bench_point.py::time_piece): `wall_ms`, the
 eager wall per call with REPS = 50 calls between two synchronizations (what
 a frame pays today), and `device_ms`, the REPS calls captured in one CUDA
 graph and replayed between CUDA events, or the profiler's kernel sum where
@@ -26,12 +26,12 @@ import json
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import torch_bench_point as bp  # noqa: E402
+from lpslam_tpu_torch.eval import bench_point as bp  # noqa: E402
 
 C, N, Pn, REPS = 6, 1200, 4096, 50
 FX, CX, CY = 460.0, 320.0, 240.0

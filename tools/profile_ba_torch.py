@@ -6,7 +6,7 @@ the card.
     python3 tools/profile_ba_torch.py --device cpu --frames 16 --width 160 \\
         --height 120 --keypoints 256 --chunk 8
 
-At the bench operating point (tools/torch_bench_point.py; MapConfig(128,
+At the bench operating point (lpslam_tpu_torch/eval/bench_point.py; MapConfig(128,
 24576, 1200)): after 16 init frames, two warm-up chunks and --frames = 128
 measured frames through ChunkedTracker(local_ba_every_chunk=False) with
 `boundary_compact = False` (the scan with no BA at all, frames staged
@@ -24,9 +24,9 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import torch_bench_point as bp  # noqa: E402
+from lpslam_tpu_torch.eval import bench_point as bp  # noqa: E402
 
 SHAPES = ((6, 8), (6, 4), (6, 2), (4, 8), (6, 1))
 TIMED = 5

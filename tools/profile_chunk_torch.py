@@ -5,7 +5,7 @@ measurements, through lpslam_tpu_torch on the card.
     python3 tools/profile_chunk_torch.py --device cpu --frames 16 --width 160 \\
         --height 120 --keypoints 256 --chunk 8
 
-At the bench operating point (tools/torch_bench_point.py: 1200 keypoints,
+At the bench operating point (lpslam_tpu_torch/eval/bench_point.py: 1200 keypoints,
 640x480, chunks of 16; 16 init frames, then --frames = 160 measured):
   A. upload only: 10 chunks of raw uint8 frames staged on the device;
   B. scan only: chunks over frames staged beforehand, the boundary's cull
@@ -24,9 +24,9 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import torch_bench_point as bp  # noqa: E402
+from lpslam_tpu_torch.eval import bench_point as bp  # noqa: E402
 
 
 def measure(args) -> dict:
