@@ -59,6 +59,23 @@ Phases (each prints a line; any failure exits non-zero and prints no result):
    of 16), twice, held to the JAX package's CPU run (JAX_LOOP_REF); the two
    runs must leave the same map bit for bit (keyframe poses, landmarks,
    accepted closures): every float sum on the path is ordered;
+7c. tracking on after a correction, from the committed state
+   TRACK_ON_STATE (phase 7's first accepted closure as the card saved it:
+   the map, the verdict, the tracker's host state; phase 7's first run
+   saves its own and the phase prints whether they are equal): the verdict
+   applied afresh (LoopCloser.apply, _loop_resync_pose, discard_carry) and
+   the next frames, up to TRACK_ON_FRAMES or the room's end, tracked with
+   loop closing off (track_on), twice: both drives equal bit for bit
+   (statuses, inliers, keyframe decisions, every pose, the final map);
+   then once under each of TRACK_MOVES (kf_t one ulp, the undistortion
+   grid one ulp up and down): the port's own spreads. The kernels launched
+   as on phase 7's path in every drive, and the centres held to the JAX
+   package's CPU drive from the same state (JAX_TRACK_ON_REF, from
+   `tools/jax_closure_reference.py --track-on --ulp`, its moves the
+   phase's) by the parting rule over every move: no two consecutive
+   16-frame windows beyond 2 x the larger spread + 1e-4, no TRACKING /
+   LOST split that no moved drive shows, keyframes within the moved
+   drives' difference + 1; the verdict by the kf_t move alone is printed;
 8. kidnapped relocalization of four first-lap frames on phase 7's map;
 9. the CLI (`pipeline.cli.main`) in process on a JSON config at the
    operating point: the synthetic source (64 frames, 640x480; it publishes
@@ -228,9 +245,11 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -299,15 +318,19 @@ def render_room(n_frames: int = LOOP_FRAMES, h: int = 480, w: int = 640):
     return raw, ds.ground_truth().positions, K, grid
 
 
-def drive_room(tracker, tracking, entry_cls, raw, rectified, chunk: int = CHUNK) -> int:
-    """Feed frames to a VSLAMTracker with the undistortion grid attached to
-    its chunk path (`attach_device_rectify`): a frame headed for the host
-    path (engine not TRACKING) is passed undistorted (`rectified(t)`), one
-    headed for the chunk path raw. Feeding stops at the last whole chunk, so
-    flush() sends no raw frame through the host path. Returns frames fed."""
-    n = end = len(raw)
-    chunked = False
-    t = 0
+def drive_room(tracker, tracking, entry_cls, raw, rectified, chunk: int = CHUNK,
+               start: int = 0, stop=None, whole_chunks: bool = True) -> int:
+    """Feed frames start.. to a VSLAMTracker with the undistortion grid
+    attached to its chunk path (`attach_device_rectify`): a frame headed for
+    the host path (engine not TRACKING) is passed undistorted
+    (`rectified(t)`), one headed for the chunk path raw. Feeding stops at
+    the last whole chunk before `stop` (default len(raw)), so flush() sends
+    no raw frame through the host path (`whole_chunks=False`, for frames
+    undistorted already: at `stop`). Returns the index after the last frame
+    fed (the frames fed, from 0)."""
+    n = end = len(raw) if stop is None else stop
+    chunked = not whole_chunks
+    t = start
     while t < end:
         host = tracker.engine.status != tracking
         if not host and not chunked:
@@ -340,16 +363,21 @@ def record_closures(closer_cls):
     return verdicts, lambda: setattr(closer_cls, "apply", orig)
 
 
-def save_closure_states(closer_cls, directory: str, tag: str, gt, save_map, to_np, at=()):
+def save_closure_states(closer_cls, directory: str, tag: str, gt, save_map, to_np, at=(),
+                        tracker_of=None, room=None):
     """Save the map the class is about to apply a verdict to, at its first
     accepted closure and at every verdict whose k_new is in `at`:
     `<tag>_k<k_new>_map.npz` through the package's
     mapstore/checkpoint.py::save_map (the JAX keys, so it loads in both
     packages) and `<tag>_k<k_new>_verdict.npz` (k_new, candidate,
     n_matches, n_inliers, detected, the Sim3 R, t, s of an accepted one,
-    the ground-truth centre of each keyframe's frame). Works for either
-    package's LoopCloser; `to_np` reads one of its arrays. Returns (the
-    saved path prefixes, undo)."""
+    the ground-truth centre of each keyframe's frame). With `tracker_of`
+    (returns the VSLAMTracker driving the run) also
+    `<tag>_k<k_new>_engine.npz`, its host state at that moment
+    (save_engine_state; `room` names the frames, for the tools that track
+    on from it). Works for either package; `to_np` reads one of its
+    arrays. Returns (a list of (path prefix, accepted, seconds the save
+    took), undo)."""
     saved = []
     orig = closer_cls.apply
 
@@ -358,6 +386,7 @@ def save_closure_states(closer_cls, directory: str, tag: str, gt, save_map, to_n
         k = int(verdict.k_new)
         first = bool(r.detected) and not any(s[1] for s in saved)
         if first or k in at:
+            t0 = time.perf_counter()
             base = os.path.join(directory, f"{tag}_k{k}")
             save_map(m, base + "_map.npz")
             fid = to_np(m.kf_frame_id).astype(np.int64)
@@ -369,23 +398,300 @@ def save_closure_states(closer_cls, directory: str, tag: str, gt, save_map, to_n
                      n_matches=int(r.n_matches), n_inliers=int(r.n_inliers),
                      detected=bool(r.detected), kf_gt=gt[np.clip(fid, 0, len(gt) - 1)],
                      **sim3)
-            saved.append((base, bool(r.detected)))
+            if tracker_of is not None:
+                save_engine_state(tracker_of(), base + "_engine.npz", to_np, room)
+            saved.append((base, bool(r.detected), time.perf_counter() - t0))
         return orig(self, m, verdict, cam=cam)
 
     closer_cls.apply = apply
     return saved, lambda: setattr(closer_cls, "apply", orig)
 
 
+# the engine's integer host state that a chunk's carry is rebuilt from
+ENGINE_INTS = ("frame_id", "last_kf_frame", "inliers_at_last_kf", "_kf_count",
+               "last_n_inliers")
+
+
+def save_engine_state(tracker, path: str, to_np, room=None) -> None:
+    """A VSLAMTracker's host state as its loop closer applies a verdict
+    (either package): the engine's pose and velocity (R, t), status,
+    ENGINE_INTS and last sigmas, the next frame to feed (the engine's
+    frame_id: the chunk buffer is empty at a boundary), the tracker's
+    pending-keyframe cursor, the chunk loop's boundary count (its periodic
+    cull), the camera, the tracker's configuration and `room` (JSON)."""
+    e = tracker.engine
+    ct = tracker._chunked
+    np.savez(path, pose_R=to_np(e.pose.R), pose_t=to_np(e.pose.t),
+             vel_R=to_np(e.velocity.R), vel_t=to_np(e.velocity.t), status=int(e.status),
+             **{k.lstrip("_"): int(getattr(e, k)) for k in ENGINE_INTS},
+             sigma_pos=np.asarray(e.last_sigma_pos), sigma_rot=float(e.last_sigma_rot),
+             next_frame=int(e.frame_id), loop_pending_kfs=int(tracker._loop_pending_kfs),
+             boundary_count=0 if ct is None else int(ct._boundary_count),
+             cam=np.array([float(v) for v in e.cam]), config=json.dumps(dict(tracker.cfg)),
+             room=json.dumps(room or {}))
+
+
+def one_ulp(a: np.ndarray, sign: int = 1) -> np.ndarray:
+    """float32 values one ulp further from zero (a zero moves to +), or
+    with `sign` -1 one ulp nearer to it (a zero stays)."""
+    a = a.astype(np.float32)
+    if sign < 0:
+        return np.nextafter(a, np.float32(0))
+    return np.nextafter(a, np.where(a < 0, -np.inf, np.inf).astype(np.float32))
+
+
+# the moves a track-on's own spread is measured under, each a drive from
+# one saved state: "ulp" moves kf_t one ulp further from zero before the
+# correction (it does not reach the features); the grid moves undistort
+# every frame through the grid one ulp further from / nearer to zero (they
+# reach the features, through the tie-decided descriptor bits)
+GRID_MOVES = {"grid_ulp": 1, "grid_ulp_down": -1}
+TRACK_MOVES = ("ulp",) + tuple(GRID_MOVES)
+
+
+def port_api(device):
+    """What track_on needs of the port, on `device` (the JAX reference tool
+    builds the same names for the JAX package)."""
+    from types import SimpleNamespace
+
+    from lpslam_tpu_torch.frontend import TrackerStatus
+    from lpslam_tpu_torch.geometry import SE3, PinholeCamera
+    from lpslam_tpu_torch.geometry.sim3 import Sim3
+    from lpslam_tpu_torch.loop.detector import LoopCloser, LoopResult, LoopVerdict
+    from lpslam_tpu_torch.mapstore.checkpoint import load_map
+    from lpslam_tpu_torch.pipeline import CameraQueueEntry, VSLAMTracker
+
+    def to_np(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    return SimpleNamespace(
+        name="torch", device=device,
+        tracker=lambda cam, cfg: VSLAMTracker(cam, cfg, device=device),
+        camera=lambda fx, fy, cx, cy: PinholeCamera.make(fx, fy, cx, cy, device=device),
+        load_map=lambda path: load_map(path, device),
+        arr=lambda a: torch.as_tensor(np.asarray(a)).to(device), to_np=to_np,
+        SE3=SE3, Sim3=Sim3, TrackerStatus=TrackerStatus, Entry=CameraQueueEntry,
+        LoopCloser=LoopCloser, LoopResult=LoopResult, LoopVerdict=LoopVerdict,
+        sync=torch.cuda.synchronize if device.type == "cuda" else (lambda: None))
+
+
+def load_engine_state(api, tracker, prefix: str, perturb: bool = False) -> dict:
+    """Set a fresh VSLAMTracker of `api`'s package to the state saved at
+    `prefix` (save_closure_states): the map through the package's
+    mapstore/checkpoint.py::load_map (kf_t one ulp further from zero with
+    `perturb`), the engine's host state, the pending-keyframe cursor and the
+    chunk loop's boundary count. Attach a rectify grid first (attaching
+    rebuilds the chunk tracker). Returns the engine file's arrays."""
+    with np.load(prefix + "_engine.npz") as f:
+        st = {k: f[k] for k in f.files}
+    e = tracker.engine
+    m = api.load_map(prefix + "_map.npz")
+    if perturb:
+        m = m._replace(kf_t=api.arr(one_ulp(api.to_np(m.kf_t))))
+    e.map = m
+    e.pose = api.SE3(api.arr(st["pose_R"]), api.arr(st["pose_t"]))
+    e.velocity = api.SE3(api.arr(st["vel_R"]), api.arr(st["vel_t"]))
+    e.status = api.TrackerStatus(int(st["status"]))
+    for k in ENGINE_INTS:
+        setattr(e, k, int(st[k.lstrip("_")]))
+    e.last_sigma_pos = st["sigma_pos"]
+    e.last_sigma_rot = float(st["sigma_rot"])
+    tracker._loop_pending_kfs = int(st["loop_pending_kfs"])
+    tracker._chunk_tracker()._boundary_count = int(st["boundary_count"])
+    return st
+
+
+def apply_saved_verdict(api, tracker, prefix: str) -> None:
+    """The saved accepted verdict applied as VSLAMTracker._loop_apply does:
+    LoopCloser.apply with the tracker's loop configuration (correct_loop,
+    then global BA at its iterations), _loop_resync_pose, discard_carry."""
+    with np.load(prefix + "_verdict.npz") as f:
+        v = {k: f[k] for k in f.files}
+    if not bool(v["detected"]):
+        raise ValueError(f"{prefix}: the saved verdict was not accepted")
+    lc = api.LoopCloser.__new__(api.LoopCloser)
+    lc.cfg = tracker._loop_cfg()
+    verdict = api.LoopVerdict(
+        api.LoopResult(True, int(v["candidate"]), int(v["n_matches"]), int(v["n_inliers"])),
+        int(v["k_new"]), api.Sim3(api.arr(v["R"]), api.arr(v["t"]), api.arr(v["s"])))
+    e = tracker.engine
+    e.map, _ = lc.apply(e.map, verdict, cam=e.cam)
+    tracker._loop_resync_pose()
+    tracker._chunk_tracker().discard_carry()
+
+
+class Frames:
+    """A room's frames for track_on: `raw[t]` goes to the chunk path (raw
+    with `grid` attached, else already undistorted), `host(t)` to the host
+    path (undistorted)."""
+
+    def __init__(self, raw, host, grid=None):
+        self.raw, self.host, self.grid = raw, host, grid
+
+    def __len__(self):
+        return len(self.raw)
+
+
+def track_on(api, prefix: str, frames: Frames, perturb: bool = False, stop=None,
+             prepare=None, keep=None) -> dict:
+    """Track on from a saved closure state in `api`'s package: a fresh
+    VSLAMTracker with the saved configuration and loop closing off,
+    `prepare(tracker)` (optional), load_engine_state, apply_saved_verdict,
+    then frames next_frame.. up to `stop` (with a grid: the last whole
+    chunk before it) through process_image (drive_room) and flush(). Returns per frame
+    (`fid`) the status, camera centre (NaN where not tracked), inliers and
+    keyframe decision, the frames that inserted a keyframe, the final
+    keyframe count, a digest of every pose and of the final map (kf_R,
+    kf_t, lm_pos; equal digests are equal bits) and the drive's seconds.
+    `keep` (a dict) receives the tracker as "tracker"."""
+    with np.load(prefix + "_engine.npz") as f:
+        config = dict(json.loads(str(f["config"])), loop_closure=False)
+        cam = [float(c) for c in f["cam"]]
+    tracker = api.tracker(api.camera(*cam), config)
+    if prepare is not None:
+        prepare(tracker)
+    if frames.grid is not None:
+        tracker.attach_device_rectify(frames.grid)
+    st = load_engine_state(api, tracker, prefix, perturb)
+    apply_saved_verdict(api, tracker, prefix)
+    eng = tracker.engine
+    seen = {}    # fid -> (inliers, keyframe inserted)
+    emit, host = tracker._emit_chunk_results, tracker._process_host
+
+    def emit_spy(drained):
+        n_inl, kf = drained[1], drained[4]
+        for i, (fid, _) in enumerate(tracker._chunk_inflight[:len(drained[0])]):
+            seen[fid] = (int(n_inl[i]), bool(kf[i]))
+        return emit(drained)
+
+    def host_spy(entry, *a, **kw):
+        fid = eng.frame_id
+        out = host(entry, *a, **kw)
+        seen[fid] = (int(eng.last_n_inliers), eng.last_kf_frame == fid)
+        return out
+
+    tracker._emit_chunk_results, tracker._process_host = emit_spy, host_spy
+    start = int(st["next_frame"])
+    api.sync()
+    t0 = time.perf_counter()
+    end = drive_room(tracker, api.TrackerStatus.TRACKING, api.Entry, frames.raw, frames.host,
+                     int(config["chunk_size"]), start=start,
+                     stop=len(frames) if stop is None else min(stop, len(frames)),
+                     whole_chunks=frames.grid is not None)
+    api.sync()
+    seconds = time.perf_counter() - t0
+    poses = hashlib.sha256()
+    rec = {"fid": [], "status": [], "centre": [], "inliers": [], "kf": []}
+    for fid, pose, status in eng.trajectory:
+        c = [float("nan")] * 3
+        if pose is not None:
+            R, t = np.asarray(pose.R), np.asarray(pose.t)
+            poses.update(R.tobytes() + t.tobytes())
+            c = (-R.T @ t).tolist()
+        n_inl, kf = seen.get(fid, (0, False))
+        for k, x in zip(rec, (fid, status.name, c, n_inl, kf)):
+            rec[k].append(x)
+    m = eng.map
+    maps = hashlib.sha256(b"".join(api.to_np(getattr(m, k)).tobytes()
+                                   for k in ("kf_R", "kf_t", "lm_pos")))
+    tracker.stop()
+    if keep is not None:
+        keep["tracker"] = tracker
+    return {"package": api.name, "ulp": perturb, "start_frame": start, "end_frame": end, **rec,
+            "keyframes_inserted": [f for f, k in zip(rec["fid"], rec["kf"]) if k],
+            "keyframes_final": int(m.n_kf), "pose_digest": poses.hexdigest(),
+            "map_digest": maps.hexdigest(), "seconds": seconds}
+
+
+# the track-on comparison: windows of this many frames from the first fed
+TRACK_WINDOW = 16
+# the parting rule's floor, map units (15c's "about twice JAX's own spread")
+PART_FLOOR = 1e-4
+
+
+def window_distances(a: dict, b: dict, window: int = TRACK_WINDOW) -> list:
+    """Per `window` frames from the first fed, the largest distance between
+    two track-on drives' camera centres over the frames both tracked (None
+    where there is none). No alignment: both drives start from one map."""
+    if a["fid"][:1] != b["fid"][:1]:
+        raise ValueError("the drives start at different frames")
+    n = min(len(a["fid"]), len(b["fid"]))
+    d = np.linalg.norm(np.asarray(a["centre"])[:n] - np.asarray(b["centre"])[:n], axis=1)
+    out = []
+    for w0 in range(0, n, window):
+        x = d[w0:w0 + window]
+        x = x[np.isfinite(x)]
+        out.append(float(x.max()) if len(x) else None)
+    return out
+
+
+def first_difference(a: dict, b: dict, key: str):
+    """The first frame at which two drives' `key` (status, kf) differ."""
+    return next((f for f, x, y in zip(a["fid"], a[key], b[key]) if x != y), None)
+
+
+def lost_frames(run: dict) -> list:
+    return [f for f, s in zip(run["fid"], run["status"]) if s != "TRACKING"]
+
+
+def parting(dist: list, spread_a: list, spread_b: list, lost_a, lost_b, unstable,
+            kf_a: int, kf_b: int, kf_ulp_diff: int) -> dict:
+    """The rule that says two packages' track-ons part (a port fault): in
+    two consecutive windows the distance `dist` exceeds 2 x the larger of
+    the two one-ulp spreads plus PART_FLOOR; or a frame is tracked in one
+    and lost in the other where neither one-ulp drive differs at it (frames
+    in `unstable`); or the keyframes inserted differ by more than the
+    one-ulp drives' own difference (`kf_ulp_diff`) plus 1."""
+    bound = [2 * max(x or 0.0, y or 0.0) + PART_FLOOR for x, y in zip(spread_a, spread_b)]
+    over = [d is not None and d > b for d, b in zip(dist, bound)]
+    window = next((w for w in range(len(over) - 1) if over[w] and over[w + 1]), None)
+    status = sorted(set(lost_a).symmetric_difference(lost_b) - set(unstable))
+    out = {"bound_per_window": bound, "windows_over": [w for w, o in enumerate(over) if o],
+           "first_two_windows_over": window, "status_part_frames": status,
+           "keyframes": [kf_a, kf_b], "keyframes_allowed_diff": kf_ulp_diff + 1}
+    out["parts"] = (window is not None or bool(status)
+                    or abs(kf_a - kf_b) > kf_ulp_diff + 1)
+    return out
+
+
+def move_spread(runs: dict, x: str, kinds) -> tuple:
+    """Drive `x`'s spread under the moves `kinds` (drives `x` + kind): per
+    window the largest distance to it over the kinds, the frames where a
+    moved drive's status differs from it, and the largest difference in
+    keyframes inserted."""
+    per = [window_distances(runs[x + k], runs[x]) for k in kinds]
+    unstable = set().union(*(set(lost_frames(runs[x])).symmetric_difference(
+        lost_frames(runs[x + k])) for k in kinds))
+    n = len(runs[x]["keyframes_inserted"])
+    kf_diff = max(abs(n - len(runs[x + k]["keyframes_inserted"])) for k in kinds)
+    return [max((w or 0.0) for w in ws) for ws in zip(*per)], unstable, kf_diff
+
+
+def parting_of_runs(runs: dict, a: str = "torch", b: str = "jax", kinds=("_ulp",)) -> dict:
+    """parting() on drives `a`, `b` and their moved drives (move_spread)."""
+    sa, ua, ka = move_spread(runs, a, kinds)
+    sb, ub, kb = move_spread(runs, b, kinds)
+    return parting(window_distances(runs[a], runs[b]), sa, sb, lost_frames(runs[a]),
+                   lost_frames(runs[b]), ua | ub, len(runs[a]["keyframes_inserted"]),
+                   len(runs[b]["keyframes_inserted"]), max(ka, kb))
+
+
 def room_metrics(engine, gt):
     """Tracked frames, Sim3 ATE of the trajectory's camera centres and the
     alignment (s, R, t) that phase 8 reuses."""
-    from lpslam_tpu_torch.eval.ate import align_umeyama
-
     fids, est = [], []
     for fid, pose, _ in engine.trajectory:
         if pose is not None:
             fids.append(fid)
             est.append(-np.asarray(pose.R).T @ np.asarray(pose.t))
+    return trajectory_error(fids, est, gt)
+
+
+def trajectory_error(fids, est, gt) -> dict:
+    """room_metrics on camera centres `est` of frames `fids`: the Sim3
+    alignment, its RMS error and the mean error per 100 frames."""
+    from lpslam_tpu_torch.eval.ate import align_umeyama
+
     est = np.asarray(est, np.float64)
     fids = np.asarray(fids)
     s, R, t = align_umeyama(est, gt[fids], with_scale=True)
@@ -394,6 +700,7 @@ def room_metrics(engine, gt):
     return {"tracked": len(fids), "ate_m": float(np.sqrt(np.mean(err ** 2))),
             "err_by_100_frames": [round(float(err[bins == b].mean()), 4)
                                   for b in np.unique(bins)],
+            "bins_from_frame": [int(b) * 100 for b in np.unique(bins)],
             "align": (s, R, t)}
 
 
@@ -1379,13 +1686,16 @@ class _Timed:
                 for k, v in self.ms.items()}
 
 
-def run_loop_room(device, raw, gt, K, grid, config=None, ref=None):
+def run_loop_room(device, raw, gt, K, grid, config=None, ref=None, hook=None):
     """Phase 7 (and 16b with a descriptor mode in `config`): the room
     through VSLAMTracker.process_image, then flush(). `ref` is the JAX
     run whose accepted closures the port's are held to: JAX_LOOP_REF when
     None, with its ATE bound; a descriptor mode's JAX_BRIEF_LOOP_REF entry
-    sets no ATE bound (ROADMAP: no ATE bar after a mono closure). Returns
-    (result dict with the failed checks, tracker, alignment, rectify)."""
+    sets no ATE bound (ROADMAP: no ATE bar after a mono closure).
+    `hook(tracker)` (returns an undo, called after the drive) runs after
+    the loop calls' timers are in place, so what it wraps around them
+    (save_closure_states) is outside their times. Returns (result dict with
+    the failed checks, tracker, alignment, rectify)."""
     from lpslam_tpu_torch.backend import ba
     from lpslam_tpu_torch.frontend import TrackerStatus
     from lpslam_tpu_torch.frontend.device_loop import ChunkedTracker
@@ -1435,6 +1745,7 @@ def run_loop_room(device, raw, gt, K, grid, config=None, ref=None):
     verdicts, undo = record_closures(detector.LoopCloser)
     plain_verify = detector.LoopCloser.verify
     detector.LoopCloser.verify = counted_verify(plain_verify)
+    undo_hook = (lambda: None) if hook is None else hook(tracker)
     reset_launches()
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     sync()
@@ -1443,6 +1754,7 @@ def run_loop_room(device, raw, gt, K, grid, config=None, ref=None):
         fed = drive_room(tracker, TrackerStatus.TRACKING, CameraQueueEntry, raw, rectified)
         sync()
     finally:
+        undo_hook()
         detector.LoopCloser.verify = plain_verify
         undo()
         timed.undo()
@@ -1511,6 +1823,283 @@ def room_map_bytes(m, closures) -> dict:
     positions and the accepted closures."""
     return {"kf_R": m.kf_R.cpu().numpy().tobytes(), "kf_t": m.kf_t.cpu().numpy().tobytes(),
             "lm_pos": m.lm_pos.cpu().numpy().tobytes(), "closures": json.dumps(closures)}
+
+
+# phase 7c: tracking on from phase 7's first accepted closure, applied
+# afresh, with loop closing off: the card's drive against the JAX package's
+# CPU drive from the same saved state. The state is committed
+# (TRACK_ON_STATE: `tools/card_loop_modes.py --modes polar --save-closure
+# DIR` saved it on the card, phase 7's drive, which repeats bit for bit),
+# so the reference does not move when the port's rounding before the
+# closure does. JAX_TRACK_ON_REF is the `ref_constant` of
+# `JAX_PLATFORMS=cpu python tools/jax_closure_reference.py --track-on
+# data/track_on/port_polar_k100 --ulp`. Up to TRACK_ON_FRAMES frames, as
+# many as the room has left (144).
+TRACK_ON_STATE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "track_on",
+                              "port_polar_k100")
+TRACK_ON_FRAMES = 160
+JAX_TRACK_ON_REF = {
+    "state_digest": "1e1ba893d5ba2ce82ccd8047be2fe1859e11aa41086fc01643ddb251fad60157",
+    "closure": [100, 7, 98], "start_frame": 596, "end_frame": 740,
+    "keyframes_inserted": 28, "lost_frames": [], "unstable_frames": [],
+    "keyframes_move_diff": 0, "moves": ["ulp", "grid_ulp", "grid_ulp_down"],
+    "torch_cpu_parts": False, "torch_cpu_parts_kf_t_only": True,
+    "ate_m_sim3": 0.005733627831454914, "err_by_100_frames": [0.0034, 0.0042, 0.0059],
+    # per 16-frame window, the largest camera-centre distance between each
+    # package's CPU drive and its drive under each move (by_move), and the
+    # largest over the moves (spread, what the phase gates on)
+    "spread": {
+        "jax": [
+            0.015945568199391323, 0.02065923144666231, 0.029464929546213138,
+            0.047821660116803416, 0.6384993888499881, 0.4421384193513244, 0.2061280193801926,
+            0.07604036389010026, 0.12268227689131253],
+        "torch_cpu": [
+            0.014866915241993423, 0.03263365172811613, 0.036480619930279665,
+            0.3483275814964125, 0.1414355378963801, 0.3878453154031018, 0.21032083556538575,
+            0.09095027929446627, 0.10641125222842956],
+    },
+    "by_move": {
+        "ulp": {
+            "jax": [
+                0.002418900310330379, 0.00648242731692513, 0.0033073649510871168,
+                0.007282443550033544, 0.005562668988569873, 0.004036353836782017,
+                0.014365602687729526, 0.006972478407711713, 0.012385615664195918],
+            "torch_cpu": [
+                0.0033535551551176546, 0.004574109505499808, 0.004042415112923921,
+                0.004152943404879415, 0.0063611511376218816, 0.06799693789180357,
+                0.1122686346374761, 0.022832225835043813, 0.023826558277658224],
+            "unstable_frames": [], "keyframes_move_diff": 0,
+        },
+        "grid_ulp": {
+            "jax": [
+                0.015945568199391323, 0.02065923144666231, 0.028644535059233558,
+                0.04164285072858485, 0.198059125780159, 0.4421384193513244, 0.2061280193801926,
+                0.07604036389010026, 0.12268227689131253],
+            "torch_cpu": [
+                0.014866915241993423, 0.03263365172811613, 0.036480619930279665,
+                0.3483275814964125, 0.04025718546862291, 0.3878453154031018,
+                0.1365621774270978, 0.09095027929446627, 0.10641125222842956],
+            "unstable_frames": [], "keyframes_move_diff": 0,
+        },
+        "grid_ulp_down": {
+            "jax": [
+                0.013709357598610812, 0.017173295471467426, 0.029464929546213138,
+                0.047821660116803416, 0.6384993888499881, 0.08727725720873282,
+                0.08162303262788492, 0.05271837331273261, 0.0963892709060637],
+            "torch_cpu": [
+                0.008900746976352096, 0.026696701768490046, 0.030258087308744894,
+                0.03549271793262891, 0.1414355378963801, 0.14064661709384654,
+                0.21032083556538575, 0.037593885473851923, 0.047343766886074],
+            "unstable_frames": [], "keyframes_move_diff": 0,
+        },
+    },
+    # JAX's camera centres, frames 596-739
+    "centres": [
+        [13.3169546, -1.6068714, -3.2868154], [13.6002874, -1.5874945, -3.5022454],
+        [13.8870583, -1.5002322, -3.6151826], [14.195899, -1.4782274, -3.7920289],
+        [14.459877, -1.4562064, -3.9270205], [14.7502108, -1.3936021, -4.1217494],
+        [15.0604963, -1.3390436, -4.2579513], [15.3221455, -1.2989745, -4.4466252],
+        [15.6072111, -1.2592976, -4.6337361], [15.9005365, -1.1979566, -4.8096309],
+        [16.1237564, -1.1278991, -4.9696875], [16.4069405, -1.1134825, -5.1113505],
+        [16.7031155, -1.0239927, -5.295094], [16.9825935, -0.9944457, -5.5063648],
+        [17.2492142, -0.9510145, -5.6963177], [17.5035629, -0.8594096, -5.864697],
+        [17.7708759, -0.8068244, -6.0542836], [18.018671, -0.7562519, -6.2500658],
+        [18.2884808, -0.70423, -6.4489484], [18.5325623, -0.6458991, -6.6663876],
+        [18.8153992, -0.5641223, -6.8876309], [19.0825329, -0.5070695, -7.1018186],
+        [19.3493958, -0.4532576, -7.3412962], [19.6097736, -0.4226897, -7.5465631],
+        [19.8442078, -0.3261472, -7.7831597], [20.0996094, -0.2621908, -7.9899058],
+        [20.3376827, -0.2169247, -8.2311153], [20.5654163, -0.140989, -8.4079247],
+        [20.8142891, -0.0874752, -8.6349897], [21.0303726, -0.0221787, -8.9152718],
+        [21.2422829, 0.0478873, -9.1423092], [21.4731293, 0.120492, -9.3854589],
+        [21.6869907, 0.1915783, -9.6113968], [21.9257965, 0.2432826, -9.8662281],
+        [22.1448078, 0.3096306, -10.068574], [22.3372879, 0.3850001, -10.30054],
+        [22.5658779, 0.4597703, -10.5524826], [22.774435, 0.531149, -10.8257847],
+        [23.0126686, 0.6450811, -11.101778], [23.1990032, 0.6931657, -11.3812809],
+        [23.363287, 0.7808475, -11.6154575], [23.5685844, 0.8612381, -11.8637018],
+        [23.771677, 0.9237353, -12.1365395], [23.9607601, 0.9523559, -12.3407288],
+        [24.1798649, 1.0386981, -12.7090826], [24.3529682, 1.0996571, -12.9308672],
+        [24.5000725, 1.1770591, -13.2079992], [24.7224846, 1.2043796, -13.4852448],
+        [24.9048004, 1.2371458, -13.7770357], [25.0617561, 1.3431913, -14.0386343],
+        [25.2162666, 1.3855896, -14.3423691], [25.4080181, 1.4561887, -14.6161871],
+        [25.598629, 1.4932613, -14.9552193], [25.7491703, 1.5244875, -15.2274933],
+        [25.9346142, 1.5860608, -15.5314159], [26.0609341, 1.6281217, -15.7897291],
+        [26.2204742, 1.7055565, -16.0884953], [26.3655243, 1.6902146, -16.3551102],
+        [26.5289173, 1.7332115, -16.6883278], [26.6898403, 1.7634883, -17.0014458],
+        [26.7983494, 1.8158889, -17.3273335], [26.9554882, 1.8644017, -17.6545963],
+        [27.0745506, 1.8932157, -17.9340343], [27.1985626, 1.9545134, -18.2129383],
+        [27.3483734, 1.9615999, -18.5966854], [27.4543724, 1.9640006, -18.8402901],
+        [27.450407, 1.9695306, -18.8364601], [27.6884651, 2.0689991, -19.4742489],
+        [27.8020782, 2.0799575, -19.8237667], [27.9071388, 2.1087849, -20.1199417],
+        [28.0063, 2.1043942, -20.472168], [28.089489, 2.1013751, -20.7179832],
+        [28.1968117, 2.112556, -21.0447922], [28.3139782, 2.1073215, -21.4276257],
+        [28.4269409, 2.1358235, -21.7624569], [28.485321, 2.1638985, -22.0752392],
+        [28.6036091, 2.1161323, -22.4052525], [28.6725426, 2.1435761, -22.7046165],
+        [28.7822189, 2.0912249, -23.088829], [28.8475189, 2.1610174, -23.3921185],
+        [28.787611, 2.1102614, -23.5765705], [28.7842484, 2.06269, -23.6862774],
+        [28.9927673, 2.0913925, -24.4347458], [29.0753345, 2.038619, -24.7420006],
+        [29.1274853, 2.0401018, -25.0809765], [29.1816235, 1.9749405, -25.3883495],
+        [29.2426224, 2.0070715, -25.7753696], [29.296032, 1.9616135, -26.1342735],
+        [29.3526936, 1.8632531, -26.4335575], [29.4014893, 1.8941556, -26.8132763],
+        [29.3872395, 1.7369255, -27.1525421], [29.4257946, 1.7002733, -27.4765739],
+        [29.4548912, 1.6527257, -27.7984829], [29.4904518, 1.5542988, -28.1591663],
+        [29.5217838, 1.5067006, -28.5185184], [29.5309258, 1.5097295, -28.8546925],
+        [29.5345612, 1.4465263, -29.0671368], [29.5459023, 1.4441072, -29.5205994],
+        [29.5614777, 1.3832674, -29.9208336], [29.5472832, 1.3609116, -30.2140388],
+        [29.4679089, 1.3558192, -30.5081768], [29.463583, 1.3119117, -30.8506508],
+        [29.4492798, 1.2858037, -31.2246132], [29.4396954, 1.1787099, -31.550333],
+        [29.4146099, 1.1883512, -31.8663254], [29.4087734, 1.0744148, -32.2483215],
+        [29.3773575, 1.0701705, -32.5885658], [29.3513069, 0.9616396, -32.8897552],
+        [29.318079, 0.9389572, -33.2966042], [29.2789421, 0.8751938, -33.6109886],
+        [29.2536392, 0.833666, -33.7215385], [29.1984158, 0.7862666, -34.0130768],
+        [29.1604309, 0.7090653, -34.3498802], [29.1081123, 0.6799552, -34.6524048],
+        [29.0470161, 0.6544793, -34.9543991], [29.0097084, 0.5444854, -35.2367516],
+        [28.9496841, 0.4636337, -35.5472794], [28.8797436, 0.3836672, -35.8445206],
+        [28.8029766, 0.3332834, -36.1756172], [28.7132206, 0.3115441, -36.5276451],
+        [28.5718555, 0.2079532, -36.889637], [28.4991989, 0.1584958, -37.1950111],
+        [28.388567, 0.0626818, -37.5465775], [28.321043, 0.0173139, -37.806736],
+        [28.2347832, -0.0522358, -38.112606], [28.1388016, -0.1135238, -38.3968773],
+        [28.0356445, -0.2156559, -38.6936493], [27.9251156, -0.2923911, -39.024334],
+        [27.8364677, -0.3527601, -39.253727], [27.7470398, -0.417796, -39.5732803],
+        [27.5859833, -0.4678764, -39.9251137], [27.4785728, -0.5462703, -40.2686157],
+        [27.3540287, -0.6099587, -40.5283318], [27.2294769, -0.6751245, -40.8651085],
+        [27.0948277, -0.7176661, -41.1142349], [26.954319, -0.7470656, -41.4264412],
+        [26.8040371, -0.803113, -41.7441025], [26.6654758, -0.8913795, -42.026062],
+        [26.5513477, -0.9225705, -42.2892342], [26.3832054, -1.0054946, -42.6222992],
+        [26.2318974, -1.0217193, -42.951683], [26.0530128, -1.0943801, -43.2717972],
+        [25.8860035, -1.1404753, -43.5134621], [25.7395897, -1.219129, -43.8073845],
+    ],
+}
+
+
+def state_digest(prefix: str) -> str:
+    """sha256 of a saved closure state's arrays (map, verdict, engine)."""
+    h = hashlib.sha256()
+    for part in ("map", "verdict", "engine"):
+        with np.load(f"{prefix}_{part}.npz") as f:
+            for k in sorted(f.files):
+                h.update(k.encode() + np.ascontiguousarray(f[k]).tobytes())
+    return h.hexdigest()
+
+
+def room_frames_on(device, raw, grid) -> Frames:
+    """The room's frames for track_on in the port on `device`: raw to the
+    chunk path with the grid attached, undistorted on the device to the
+    host path."""
+    from lpslam_tpu_torch.kernels.remap import remap_bilinear
+
+    grid_d = torch.from_numpy(grid).to(device)
+    return Frames(raw, lambda t: remap_bilinear(
+        torch.from_numpy(raw[t]).to(device, torch.float32), grid_d), grid)
+
+
+def ref_drive(ref: dict) -> dict:
+    """JAX_TRACK_ON_REF's JAX drive as a track_on record (centres only)."""
+    c = [[float("nan")] * 3 if x is None else x for x in ref["centres"]]
+    return {"fid": list(range(ref["start_frame"], ref["start_frame"] + len(c))), "centre": c}
+
+
+def moved_room_frames(device, raw, grid) -> dict:
+    """room_frames_on under each of GRID_MOVES: the frames undistorted
+    through the grid moved one ulp."""
+    return {k: room_frames_on(device, raw, one_ulp(grid, sign)) for k, sign in GRID_MOVES.items()}
+
+
+def run_track_on_phase(device, prefix: str, frames: Frames, gt, n: int = TRACK_ON_FRAMES,
+                       ref=None, moved=None) -> tuple:
+    """Phase 7c: track_on from the state at `prefix` on `device`, twice,
+    then once from kf_t one ulp further from zero and once on each of
+    `moved`'s frames (moved_room_frames: the grid moves): the port's own
+    spreads, on the device. Each drive with the launch counters reset
+    before it and read after it. Checks: the first two drives equal bit for
+    bit (statuses, inliers, keyframe decisions, every pose, the final map),
+    in every drive the extraction kernels once per level per extraction,
+    the fused matcher at least twice per tracked frame and the dense
+    Hamming kernel where a keyframe was inserted (mapping); with `ref`
+    (JAX_TRACK_ON_REF) the state is the one it was computed from, its moves
+    are these drives' moves, the same frames, and the first drive does not
+    part from JAX's by `parting` with the spreads over every move, JAX's
+    pinned ones and the drives' own. The verdict with the kf_t move's
+    spreads alone is reported beside it (`vs_jax_kf_t_only`), not checked.
+    Returns (result with the failed checks, the drives)."""
+    from lpslam_tpu_torch.frontend.device_loop import ChunkedTracker
+    from lpslam_tpu_torch.pipeline import VSLAMTracker
+
+    api = port_api(device)
+    with np.load(prefix + "_engine.npz") as f:
+        start = int(f["next_frame"])
+    with np.load(prefix + "_verdict.npz") as f:
+        closure = [int(f["k_new"]), int(f["candidate"]), int(f["n_inliers"])]
+    moved = moved or {}
+    plan = [("", frames, False), ("again", frames, False), ("_ulp", frames, True)]
+    plan += [("_" + k, fr, False) for k, fr in moved.items()]
+    moves = [k.lstrip("_") for k, _, _ in plan[2:]]
+    drives, launches, extractions = {}, [], []
+    for name, fr, perturb in plan:
+        timed = _Timed(device)
+        timed.wrap(ChunkedTracker, "process_chunk", "chunk")
+        timed.wrap(VSLAMTracker, "_process_host", "host_frame")
+        reset_launches()
+        try:
+            drives[name] = track_on(api, prefix, fr, perturb=perturb, stop=start + n)
+        finally:
+            timed.undo()
+        launches.append(read_launches())
+        t = timed.summary()
+        extractions.append(sum(t.get(k, {"n": 0})["n"] for k in ("chunk", "host_frame")))
+    a = drives[""]
+    same = {k: a[k] == drives["again"][k] for k in ("status", "inliers", "kf", "pose_digest",
+                                                    "map_digest")}
+    lost = lost_frames(a)
+    tracked = len(a["fid"]) - len(lost)
+    met = trajectory_error([f for f, s in zip(a["fid"], a["status"]) if s == "TRACKING"],
+                           [c for c, s in zip(a["centre"], a["status"]) if s == "TRACKING"],
+                           gt)
+    spread, unstable, kf_diff = move_spread(drives, "", ["_" + k for k in moves])
+    res = {"closure": closure, "start_frame": start, "end_frame": a["end_frame"],
+           "frames": len(a["fid"]), "tracked": tracked, "lost_frames": lost,
+           "keyframes_inserted": a["keyframes_inserted"], "ate_m_sim3": met["ate_m"],
+           "err_by_100_frames": met["err_by_100_frames"],
+           "bins_from_frame": met["bins_from_frame"],
+           "seconds": {k: d["seconds"] for k, d in drives.items()},
+           "fps": {k: len(d["fid"]) / d["seconds"] for k, d in drives.items()},
+           "launches": launches, "extractions": extractions, "same": same, "moves": moves,
+           "spread_per_window": spread,
+           "spread_by_move": {k: move_spread(drives, "", ["_" + k])[0] for k in moves},
+           "state_digest": state_digest(prefix)}
+    checks = {
+        "the two drives equal bit for bit": all(same.values()),
+        "the extraction kernels on every extraction": all(
+            extraction(x) == {k: LEVELS * e for k in EXTRACTION_KERNELS}
+            for x, e in zip(launches, extractions)),
+        "the fused projected matcher >= twice per tracked frame": all(
+            x["match_projected"] >= 2 * (len(d["fid"]) - len(lost_frames(d)))
+            for x, d in zip(launches, drives.values())),
+    }
+    if a["keyframes_inserted"]:
+        checks["the dense Hamming kernel launched (keyframes mapped)"] = all(
+            x["hamming_matrix"] > 0 for x in launches)
+    if ref is not None:
+        jax = ref_drive(ref)
+        dist = window_distances(a, jax)
+        res["vs_jax"] = {"dist_per_window": dist, **parting(
+            dist, ref["spread"]["jax"], spread, lost, ref["lost_frames"],
+            unstable | set(ref["unstable_frames"]), len(a["keyframes_inserted"]),
+            ref["keyframes_inserted"], max(kf_diff, ref["keyframes_move_diff"]))}
+        kf_t = ref["by_move"]["ulp"]
+        own = move_spread(drives, "", ["_ulp"])
+        res["vs_jax_kf_t_only"] = parting(
+            dist, kf_t["jax"], own[0], lost, ref["lost_frames"],
+            own[1] | set(kf_t["unstable_frames"]), len(a["keyframes_inserted"]),
+            ref["keyframes_inserted"], max(own[2], kf_t["keyframes_move_diff"]))
+        checks[f"JAX_TRACK_ON_REF's moves {ref['moves']} are these drives' {moves}"] = (
+            ref["moves"] == moves)
+        checks["the state JAX_TRACK_ON_REF was computed from"] = (
+            res["state_digest"] == ref["state_digest"])
+        checks["the frames of JAX's drive"] = a["fid"] == jax["fid"]
+        checks["does not part from JAX's drive (the parting rule, every move)"] = (
+            not res["vs_jax"]["parts"])
+    res["checks_failed"] = [k for k, ok in checks.items() if not ok]
+    return res, drives
 
 
 def run_kidnap(device, tracker, gt, align, rectified, frames=KIDNAP_FRAMES):
@@ -3367,19 +3956,36 @@ def main() -> int:
     # map bit for bit) and 8 all run before a failed check raises
     failed = []
     maps = []
+    # the first run's first accepted closure, saved for phase 7c to set
+    # beside the committed state it tracks on from
+    from lpslam_tpu_torch.loop.detector import LoopCloser
+    from lpslam_tpu_torch.mapstore.checkpoint import save_map
+
+    state_dir = tempfile.mkdtemp(prefix="lpslam_7c_")
+    saved = []
+
+    def save_first_closure(tracker):
+        out, undo = save_closure_states(
+            LoopCloser, state_dir, "phase7", gt, save_map, lambda x: x.detach().cpu().numpy(),
+            tracker_of=lambda: tracker, room={"kind": "loop", "frames": len(raw)})
+        saved.append(out)
+        return undo
+
     for run in (1, 2):
         t0 = time.perf_counter()
-        res, tracker, align, rectified = run_loop_room(device, raw, gt, K, grid)
+        res, tracker, align, rectified = run_loop_room(
+            device, raw, gt, K, grid, hook=save_first_closure if run == 1 else None)
         for name, n in res["launches"].items():
             records[name]["launches"] += n
         maps.append(room_map_bytes(tracker.engine.map, res["closures"]))
         print(f"loop room run {run}: " + json.dumps(res))
         failed += [f"phase 7 run {run}: {c}" for c in res["checks_failed"]]
         t = res["times"]
+        saving = f" (with the closure's state saved in {sum(x[2] for x in saved[0]):.3f} s)"
         print(f"phase 7 run {run}: {res['frames']} frames, {res['tracked']} tracked, "
               f"closures {res['closures']} (JAX CPU {JAX_LOOP_REF['closures']}), ATE "
               f"{res['ate_m_sim3']:.4f} m Sim3 (bound {loop_ate_bound():.4f}), "
-              f"{res['fps']:.2f} frames/s; median ms: BoW add "
+              f"{res['fps']:.2f} frames/s{saving if run == 1 else ''}; median ms: BoW add "
               f"{t['bow_add']['median_ms']:.2f}, detect {t['bow_detect']['median_ms']:.2f}, "
               f"verify {t['verify']['median_ms']:.2f}, correct_loop "
               f"{t.get('correct_loop', {}).get('median_ms', float('nan')):.2f}, global_ba "
@@ -3402,6 +4008,34 @@ def main() -> int:
           f"{sum(r['relocalized'] for r in JAX_LOOP_REF['relocalization'])}), errors "
           f"{[round(r['err_m'], 4) for r in res['relocalization']]} m, "
           f"{time.perf_counter() - t0:.1f} s, on {card}")
+    t0 = time.perf_counter()
+    # phase 7c tracks on from the committed state (TRACK_ON_STATE), so that
+    # JAX_TRACK_ON_REF holds whatever moves phase 7's rounding; phase 7's own
+    # state is set beside it, not checked
+    own = next((base for base, ok, _ in saved[0] if ok), None)
+    same_state = own is not None and state_digest(own) == JAX_TRACK_ON_REF["state_digest"]
+    res, _ = run_track_on_phase(device, str(TRACK_ON_STATE), room_frames_on(device, raw, grid),
+                                gt, ref=JAX_TRACK_ON_REF,
+                                moved=moved_room_frames(device, raw, grid))
+    print("track on: " + json.dumps(res))
+    failed += [f"phase 7c: {c}" for c in res["checks_failed"]]
+    vs, kf_t = res.get("vs_jax", {}), res.get("vs_jax_kf_t_only", {})
+    print(f"phase 7c: from the committed closure {res['closure']} at frame "
+          f"{res['start_frame']} (phase 7's first run saved {'the same' if same_state else 'another'} "
+          f"state), {res['frames']} frames tracked on {len(res['fps'])} times (the first two "
+          f"equal bit for bit: {all(res['same'].values())}; then under the moves "
+          f"{res['moves']}: spread {res['spread_per_window']}), {res['tracked']} tracked, "
+          f"keyframes inserted {len(res['keyframes_inserted'])} (JAX CPU "
+          f"{JAX_TRACK_ON_REF['keyframes_inserted']}), Sim3 ATE "
+          f"{res['ate_m_sim3']:.4f} m, error by 100 frames {res['err_by_100_frames']} "
+          f"from frame {res['bins_from_frame'][:1]} (JAX CPU "
+          f"{JAX_TRACK_ON_REF['err_by_100_frames']}); centres from JAX's per "
+          f"{TRACK_WINDOW} frames {vs.get('dist_per_window')} against "
+          f"{vs.get('bound_per_window')} (parts: {vs.get('parts')}; by the kf_t move alone, "
+          f"not checked: windows over {kf_t.get('windows_over')}, parts: {kf_t.get('parts')}); "
+          f"frames/s {({k: round(x, 2) for k, x in res['fps'].items()})}; launches "
+          f"{res['launches'][0]}; {time.perf_counter() - t0:.1f} s, on {card}")
+    shutil.rmtree(state_dir, ignore_errors=True)
     # phase 15c's input: the room map and its BoW database as phase 8 left them
     room_map = convert.map_to_numpy(tracker.engine.map)
     room_db = tracker.loop_closer.db.cpu().numpy()

@@ -31,6 +31,14 @@ unrounded, plus the accepted closures, the loop calls' synchronized ms,
 every drive's windows and the equality); --out writes it too. Exits 1 when
 a check fails. On an H100 the render and two drives take ~5 min; without
 --device it needs CUDA.
+
+--save-closure DIR: in the first drive, the state just before its first
+accepted closure is applied, saved with chip_smoke.save_closure_states
+(`DIR/soak_k<k_new>_{map,verdict,engine}.npz`), for
+`tools/jax_closure_reference.py --track-on` to track on from it on the CPU
+in both packages. The save wraps LoopCloser.apply outside its timer, but
+inside the drive: that drive's windows include its seconds
+(`closure_state_saved` in the drive's line).
 """
 from __future__ import annotations
 
@@ -209,6 +217,7 @@ def run_port(raw, ds, device, args) -> dict:
     from lpslam_tpu_torch.eval import ate_rmse
     from lpslam_tpu_torch.eval.run_dataset import build_rectifier
     from lpslam_tpu_torch.loop import detector
+    from lpslam_tpu_torch.mapstore.checkpoint import save_map
     from lpslam_tpu_torch.pipeline import CameraQueueEntry, VSLAMTracker
 
     def to_np(x):
@@ -227,15 +236,25 @@ def run_port(raw, ds, device, args) -> dict:
         timed = smoke._Timed(device)
         timed_loop_calls(timed, {"detector": detector, "ba": ba})
         verdicts, undo = smoke.record_closures(detector.LoopCloser)
+        saved, undo_save = [], (lambda: None)
+        if d == 0 and getattr(args, "save_closure", ""):
+            os.makedirs(args.save_closure, exist_ok=True)
+            room = {"kind": "soak", "frames": len(raw), "size": [args.height, args.width]}
+            saved, undo_save = smoke.save_closure_states(
+                detector.LoopCloser, args.save_closure, "soak", gt, save_map, to_np,
+                tracker_of=lambda: tracker, room=room)
         try:
             windows, occupancy, wall = soak_drive(tracker, frame, len(raw), args.window, sync,
                                                   CameraQueueEntry, ds.fps)
         finally:
+            undo_save()
             undo()
             timed.undo()
         r = summarize(tracker.engine, gt, len(raw), windows, occupancy, wall, ate_rmse, to_np)
         r["closures"] = [list(v[:2] + v[3:4]) for v in verdicts if v[4]]
         r["verdicts_named_candidate"] = len(verdicts)
+        if saved:
+            r["closure_state_saved"] = saved
         r["loop_calls"] = timed.summary()
         r["map"] = map_bytes(tracker.engine.map, r["closures"], to_np)
         tracker.stop()
@@ -294,6 +313,7 @@ def parser(device: bool = True) -> argparse.ArgumentParser:
     p.add_argument("--window", type=int, default=128, help="frames per fps sample")
     if device:
         p.add_argument("--device", default="cuda")
+        p.add_argument("--save-closure", default="", help="directory for the first closure's state")
     p.add_argument("--out", default="")
     return p
 
