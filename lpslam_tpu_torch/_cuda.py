@@ -14,7 +14,6 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import time
 from pathlib import Path
 
 import torch
@@ -29,7 +28,6 @@ NVCC_FLAGS = (
 
 _LIBS: dict = {}
 _ENTRIES: dict = {}
-BUILD_SECONDS: dict = {}
 
 
 def _nvcc() -> str:
@@ -54,7 +52,6 @@ def load_libraries(sources) -> dict:
     together — and return {source: loaded library}. Raises if any nvcc
     fails."""
     todo = [s for s in sources if s not in _LIBS]
-    t0 = time.perf_counter()
     jobs = []
     for source in todo:
         src = CSRC / source
@@ -77,7 +74,6 @@ def load_libraries(sources) -> dict:
         raise RuntimeError("\n".join(failed))
     for source in todo:
         _LIBS[source] = ctypes.CDLL(str(_lib_path(CSRC / source)))
-        BUILD_SECONDS[source] = time.perf_counter() - t0
     return {s: _LIBS[s] for s in sources}
 
 

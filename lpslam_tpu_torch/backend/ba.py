@@ -30,6 +30,7 @@ from ..geometry.se3 import SE3, se3_compose, se3_exp
 from ..geometry.so3 import hat
 from ..kernels.fast import topk_stable
 from ..kernels.linalg import inv3x3_guarded, inv6x6_spd, segment_plan, segment_sum
+from ..utils import timing
 
 CHI2_2D = 5.991
 
@@ -348,7 +349,8 @@ def local_ba(m, cam: PinholeCamera, window: int = 6, iters: int = 8,
              covisibility: bool = False):
     """Optimize a window of keyframes + every landmark they observe; the two
     anchor cameras are held fixed. Returns (updated MapStore, BAResult)."""
-    return _local_ba_impl(m, cam, window, iters, covisibility)
+    with timing.span("local_ba"):
+        return _local_ba_impl(m, cam, window, iters, covisibility)
 
 
 def _local_ba_impl(m, cam: PinholeCamera, window: int, iters: int,

@@ -33,6 +33,7 @@ from ..geometry.se3 import (
 from ..kernels.orb import OrbFeatures, extract_orb
 from ..kernels.remap import remap_bilinear
 from ..mapstore.store import MapStore, cull_and_compact
+from ..utils import timing
 from .stereo import (
     RGBDTracker,
     StereoTracker,
@@ -205,22 +206,27 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
         return x if grid is None else remap_bilinear(x, grid)
 
     def scan_chunk(carry: ChunkCarry, frames):
-        if mode == "mono":
-            left, aux = _prep(frames, rmap), None
-        elif mode == "stereo":
-            left = _prep(frames[:, 0], None if rmap is None else rmap[0])
-            aux = _prep(frames[:, 1], None if rmap is None else rmap[1])
-        else:
-            left, aux = _prep(frames[0], rmap), _prep(frames[1], rmap)
-        feats_all = extract_orb(left, cfg.orb)
-        if mask is not None:
-            feats_all = _apply_mask(feats_all, mask)
+        with timing.span("chunk_extract"):
+            frames = _upload(frames, device)
+            if mode == "mono":
+                left, aux = _prep(frames, rmap), None
+            elif mode == "stereo":
+                left = _prep(frames[:, 0], None if rmap is None else rmap[0])
+                aux = _prep(frames[:, 1], None if rmap is None else rmap[1])
+            else:
+                left, aux = _prep(frames[0], rmap), _prep(frames[1], rmap)
+            feats_all = extract_orb(left, cfg.orb)
+            if mask is not None:
+                feats_all = _apply_mask(feats_all, mask)
         outs = []
         for i in range(left.shape[0]):
-            carry, out = step(
-                carry, OrbFeatures(*(f[i] for f in feats_all)), left[i],
-                None if aux is None else aux[i],
-            )
+            fid = carry.frame_id
+            with timing.span("chunk_frame", fid):
+                carry, out = step(
+                    carry, OrbFeatures(*(f[i] for f in feats_all)), left[i],
+                    None if aux is None else aux[i],
+                )
+            timing.stamp(fid, "pose")
             outs.append(out)
         sts, n_inl, pR, pt, kfs, sp, sr = zip(*outs)
         return carry, FrameOut(
@@ -234,6 +240,14 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
         )
 
     return scan_chunk
+
+
+def _upload(frames, device):
+    """Host arrays (or a tuple of them) as tensors on `device`; tensors
+    already there pass through."""
+    if isinstance(frames, tuple):
+        return tuple(_upload(f, device) for f in frames)
+    return torch.as_tensor(frames).to(device, non_blocking=True)
 
 
 def _out_to_numpy(cat: FrameOut):
@@ -318,47 +332,47 @@ class ChunkedTracker:
     def prefetch(self, frames):
         """Stage a chunk on the device; returns a handle for process_chunk.
         rgbd passes a (gray, depth) tuple."""
-        if isinstance(frames, tuple):
-            return tuple(self.prefetch(f) for f in frames)
-        return torch.as_tensor(frames).to(self.device, non_blocking=True)
+        return _upload(frames, self.device)
 
     def process_chunk(self, frames) -> None:
         """Advance tracking over one chunk (host arrays or a prefetch()
         handle): (B, H, W) mono, (B, 2, H, W) stereo eye pairs, or a
         ((B, H, W) gray, (B, H, W) depth) tuple for rgbd."""
         assert self.ready, "initialize via the host path first"
-        e = self.engine
-        start_frame = e.frame_id
-        frames = self.prefetch(frames)
-        n_frames = int((frames[0] if isinstance(frames, tuple) else frames).shape[0])
-        carry, out = self._scan(self._carry(), frames)
+        with timing.span("process_chunk"):
+            e = self.engine
+            start_frame = e.frame_id
+            n_frames = int((frames[0] if isinstance(frames, tuple) else frames).shape[0])
+            # the step uploads the frames (a prefetch() handle is on the device already)
+            carry, out = self._scan(self._carry(), frames)
 
-        e.map = carry.m
-        e.pose = SE3(carry.pose_R, carry.pose_t)
-        e.velocity = SE3(carry.vel_R, carry.vel_t)
-        e.frame_id = start_frame + n_frames
-        self._outs.append(out)
+            with timing.span("chunk_boundary"):
+                e.map = carry.m
+                e.pose = SE3(carry.pose_R, carry.pose_t)
+                e.velocity = SE3(carry.vel_R, carry.vel_t)
+                e.frame_id = start_frame + n_frames
+                self._outs.append(out)
 
-        # chunk boundary: multi-pass keyframe cull + compaction when the chunk
-        # inserted a keyframe and the store nears capacity or the periodic
-        # quality cull is due (local BA, when on, ran inside the loop)
-        if self.boundary_compact:
-            max_cull = n_frames // max(e.cfg.kf_min_interval, 1) + 1
-            self._boundary_count += 1
-            periodic = (self._boundary_count % self.compact_period) == 0
-            if bool(out.kf_inserted.any()):
-                kf_cap = e.map.kf_valid.shape[0]
-                near_cap = int(e.map.n_kf) >= kf_cap - (2 * max_cull + 2)
-                if self.compact_enabled and (near_cap or periodic):
-                    res = cull_and_compact(
-                        e.map, keep_latest=e.cfg.kf_cull_keep_latest,
-                        redundancy=e.cfg.kf_cull_redundancy,
-                        min_other_obs=e.cfg.kf_cull_min_other_obs,
-                        max_cull=max_cull, force_free=max_cull,
-                    )
-                    e.map = res.map
-                    e._queue_compaction(res)
-        self._pending_carry = carry
+                # chunk boundary: multi-pass keyframe cull + compaction when the
+                # chunk inserted a keyframe and the store nears capacity or the
+                # periodic quality cull is due (local BA, when on, ran inside the loop)
+                if self.boundary_compact:
+                    max_cull = n_frames // max(e.cfg.kf_min_interval, 1) + 1
+                    self._boundary_count += 1
+                    periodic = (self._boundary_count % self.compact_period) == 0
+                    if bool(out.kf_inserted.any()):
+                        kf_cap = e.map.kf_valid.shape[0]
+                        near_cap = int(e.map.n_kf) >= kf_cap - (2 * max_cull + 2)
+                        if self.compact_enabled and (near_cap or periodic):
+                            res = cull_and_compact(
+                                e.map, keep_latest=e.cfg.kf_cull_keep_latest,
+                                redundancy=e.cfg.kf_cull_redundancy,
+                                min_other_obs=e.cfg.kf_cull_min_other_obs,
+                                max_cull=max_cull, force_free=max_cull,
+                            )
+                            e.map = res.map
+                            e._queue_compaction(res)
+                self._pending_carry = carry
 
     def invalidate_carry(self) -> None:
         """Call after changing the engine's host state (pose, status,
@@ -380,11 +394,12 @@ class ChunkedTracker:
         c = self._pending_carry
         if c is None:
             return
-        e = self.engine
-        e.status = TrackerStatus(c.status)
-        e.last_kf_frame = c.last_kf_frame
-        e.inliers_at_last_kf = c.inliers_at_last_kf
-        e._kf_count = int(c.m.n_kf)
+        with timing.span("chunk_boundary"):
+            e = self.engine
+            e.status = TrackerStatus(c.status)
+            e.last_kf_frame = c.last_kf_frame
+            e.inliers_at_last_kf = c.inliers_at_last_kf
+            e._kf_count = int(c.m.n_kf)
 
     def drain(self, keep_last: int = 0):
         """Fetch and clear per-frame outputs, keeping the newest `keep_last`
@@ -394,7 +409,8 @@ class ChunkedTracker:
         if take <= 0:
             return _EMPTY_OUT
         outs, self._outs = self._outs[:take], self._outs[take:]
-        return _out_to_numpy(FrameOut(*(torch.cat(x) for x in zip(*outs))))
+        with timing.span("chunk_boundary"):
+            return _out_to_numpy(FrameOut(*(torch.cat(x) for x in zip(*outs))))
 
     def collect(self):
         """All per-frame outputs so far, as numpy (see drain)."""

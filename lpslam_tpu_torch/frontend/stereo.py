@@ -20,6 +20,7 @@ from ..kernels.stereo import (
 from ..mapstore.store import (
     MapStore, empty_map, insert_keyframe_slots, scatter_drop, set_row,
 )
+from ..utils import timing
 from .tracker import (
     MonoTracker, TrackerConfig, _apply_mask, _row, triangulate_new_landmarks,
 )
@@ -84,50 +85,51 @@ def insert_keyframe_depth(m: MapStore, pose: SE3, cam: PinholeCamera,
     A candidate within 2% of its depth of an existing valid landmark is a
     duplicate of it and is not made. New landmarks take slots n_lm + rank;
     past capacity they are dropped."""
-    poor = (m.lm_n_visible >= 8) & (
-        m.lm_n_found.to(torch.float32) < 0.25 * m.lm_n_visible.to(torch.float32)
-    )
-    m = m._replace(lm_valid=m.lm_valid & ~poor)
-    m = insert_keyframe_slots(
-        m, pose.R, pose.t, feats.xy, feats.desc, feats.valid, kp_lm_idx, frame_id
-    )
-    k_new = m.n_kf - 1
+    with timing.span("insert_keyframe"):
+        poor = (m.lm_n_visible >= 8) & (
+            m.lm_n_found.to(torch.float32) < 0.25 * m.lm_n_visible.to(torch.float32)
+        )
+        m = m._replace(lm_valid=m.lm_valid & ~poor)
+        m = insert_keyframe_slots(
+            m, pose.R, pose.t, feats.xy, feats.desc, feats.valid, kp_lm_idx, frame_id
+        )
+        k_new = m.n_kf - 1
 
-    good = feats.valid & depth_ok & (kp_lm_idx < 0)
-    rays = unproject_pinhole(cam, feats.xy, depth=depth)
-    T_wc = se3_inverse(pose)
-    pts = rays @ T_wc.R.T + T_wc.t
+        good = feats.valid & depth_ok & (kp_lm_idx < 0)
+        rays = unproject_pinhole(cam, feats.xy, depth=depth)
+        T_wc = se3_inverse(pose)
+        pts = rays @ T_wc.R.T + T_wc.t
 
-    # duplicate test against the map: |a|^2 + |b|^2 - 2ab in one matmul
-    lm = m.lm_pos
-    d2 = (
-        torch.sum(pts * pts, -1)[:, None]
-        + torch.sum(lm * lm, -1)[None, :]
-        - 2.0 * pts @ lm.T
-    )
-    dup_r = 0.02 * torch.clamp(depth, min=0.5)
-    dup = torch.any((d2 < (dup_r ** 2)[:, None]) & m.lm_valid[None, :], dim=1)
-    good = good & ~dup
+        # duplicate test against the map: |a|^2 + |b|^2 - 2ab in one matmul
+        lm = m.lm_pos
+        d2 = (
+            torch.sum(pts * pts, -1)[:, None]
+            + torch.sum(lm * lm, -1)[None, :]
+            - 2.0 * pts @ lm.T
+        )
+        dup_r = 0.02 * torch.clamp(depth, min=0.5)
+        dup = torch.any((d2 < (dup_r ** 2)[:, None]) & m.lm_valid[None, :], dim=1)
+        good = good & ~dup
 
-    M = m.lm_pos.shape[0]
-    rank = torch.cumsum(good.to(torch.int64), 0) - 1
-    slot = torch.where(good, m.n_lm + rank, M)
-    slot = torch.where(slot < M, slot, M)
-    made = (slot < M) & good
-    n_new = torch.sum(made).to(torch.int32)
-    K = m.kf_lm_idx.shape[0]
-    kf_lm_new = torch.where(
-        made, slot.to(torch.int32), _row(m.kf_lm_idx, torch.clamp(k_new, max=K - 1))
-    )
-    return m._replace(
-        lm_pos=scatter_drop(m.lm_pos, slot, pts),
-        lm_desc=scatter_drop(m.lm_desc, slot, feats.desc),
-        lm_valid=scatter_drop(m.lm_valid, slot, True),
-        lm_n_obs=scatter_drop(m.lm_n_obs, slot, 1),
-        lm_first_kf=scatter_drop(m.lm_first_kf, slot, k_new.to(torch.int32)),
-        kf_lm_idx=set_row(m.kf_lm_idx, k_new, kf_lm_new),
-        n_lm=torch.clamp(m.n_lm + n_new, max=M),
-    )
+        M = m.lm_pos.shape[0]
+        rank = torch.cumsum(good.to(torch.int64), 0) - 1
+        slot = torch.where(good, m.n_lm + rank, M)
+        slot = torch.where(slot < M, slot, M)
+        made = (slot < M) & good
+        n_new = torch.sum(made).to(torch.int32)
+        K = m.kf_lm_idx.shape[0]
+        kf_lm_new = torch.where(
+            made, slot.to(torch.int32), _row(m.kf_lm_idx, torch.clamp(k_new, max=K - 1))
+        )
+        return m._replace(
+            lm_pos=scatter_drop(m.lm_pos, slot, pts),
+            lm_desc=scatter_drop(m.lm_desc, slot, feats.desc),
+            lm_valid=scatter_drop(m.lm_valid, slot, True),
+            lm_n_obs=scatter_drop(m.lm_n_obs, slot, 1),
+            lm_first_kf=scatter_drop(m.lm_first_kf, slot, k_new.to(torch.int32)),
+            kf_lm_idx=set_row(m.kf_lm_idx, k_new, kf_lm_new),
+            n_lm=torch.clamp(m.n_lm + n_new, max=M),
+        )
 
 
 class StereoTracker(MonoTracker):
@@ -164,12 +166,13 @@ class StereoTracker(MonoTracker):
         )
 
     def process(self, image, aux=None, nav_prior=None):
-        self._last_left = self._image(image)
-        self._feats_lr = None
-        if aux is not None:
-            both = torch.stack([self._last_left, self._image(aux)])
-            self._feats_lr = _extract_two_eyes(both, self.cfg.orb)
-        return super().process(image, aux=aux, nav_prior=nav_prior)
+        with timing.span("engine_process", self.frame_id):
+            self._last_left = self._image(image)
+            self._feats_lr = None
+            if aux is not None:
+                both = torch.stack([self._last_left, self._image(aux)])
+                self._feats_lr = _extract_two_eyes(both, self.cfg.orb)
+            return super().process(image, aux=aux, nav_prior=nav_prior)
 
     def _extract(self, image) -> OrbFeatures:
         if self._feats_lr is not None:

@@ -45,6 +45,7 @@ from ..mapstore.store import (
     scatter_drop,
     set_row,
 )
+from ..utils import timing
 from .init2v import two_view_init_homography
 from .pose_opt import pose_only_optimize
 from .triangulate import triangulate_midpoint
@@ -118,83 +119,84 @@ def track_frame(m: MapStore, pose_pred: SE3, cam: PinholeCamera,
 
     local_cap: match against at most this many landmarks — visible first,
     then by found ratio, ties to the lowest slot (a stable sort)."""
-    P = m.lm_pos.shape[0]
-    dev = m.lm_pos.device
-    p_c = m.lm_pos @ pose_pred.R.T + pose_pred.t
-    uv_pred_full = project_pinhole(cam, p_c)
-    visible_full = (
-        m.lm_valid
-        & (p_c[:, 2] > 1e-3)
-        & (uv_pred_full[:, 0] >= 0.0)
-        & (uv_pred_full[:, 1] >= 0.0)
-    )
-    if local_cap is not None and local_cap < P:
-        found_ratio = m.lm_n_found.to(torch.float32) / (
-            m.lm_n_visible.to(torch.float32) + 1.0
+    with timing.span("track_frame"):
+        P = m.lm_pos.shape[0]
+        dev = m.lm_pos.device
+        p_c = m.lm_pos @ pose_pred.R.T + pose_pred.t
+        uv_pred_full = project_pinhole(cam, p_c)
+        visible_full = (
+            m.lm_valid
+            & (p_c[:, 2] > 1e-3)
+            & (uv_pred_full[:, 0] >= 0.0)
+            & (uv_pred_full[:, 1] >= 0.0)
         )
-        score = visible_full.to(torch.float32) * 2.0 + found_ratio
-        _, sel = topk_stable(score, local_cap)
-    else:
-        sel = torch.arange(P, device=dev)
-    lm_pos = m.lm_pos[sel]
-    lm_desc = m.lm_desc[sel]
-    lm_valid = m.lm_valid[sel]
-    visible = visible_full[sel]
-    uv_pred = uv_pred_full[sel]
-    base = torch.tensor(1.2, dtype=torch.float32, device=dev)
+        if local_cap is not None and local_cap < P:
+            found_ratio = m.lm_n_found.to(torch.float32) / (
+                m.lm_n_visible.to(torch.float32) + 1.0
+            )
+            score = visible_full.to(torch.float32) * 2.0 + found_ratio
+            _, sel = topk_stable(score, local_cap)
+        else:
+            sel = torch.arange(P, device=dev)
+        lm_pos = m.lm_pos[sel]
+        lm_desc = m.lm_desc[sel]
+        lm_valid = m.lm_valid[sel]
+        visible = visible_full[sel]
+        uv_pred = uv_pred_full[sel]
+        base = torch.tensor(1.2, dtype=torch.float32, device=dev)
 
-    idx, ok = match_projected(
-        lm_desc, uv_pred, visible, feats.desc, feats.xy, feats.valid,
-        radius=radius, max_distance=max_hamming,
-    )
-    sigma2 = base ** (2.0 * feats.level[idx].to(torch.float32))
-    res = pose_only_optimize(
-        pose_pred, cam, lm_pos, feats.xy[idx], ok, sigma2=sigma2, iters=6
-    )
-    # second stage: re-project with the optimized pose, tight window
-    p_c2 = lm_pos @ res.pose.R.T + res.pose.t
-    uv_pred2 = project_pinhole(cam, p_c2)
-    visible2 = lm_valid & (p_c2[:, 2] > 1e-3)
-    idx, ok = match_projected(
-        lm_desc, uv_pred2, visible2, feats.desc, feats.xy, feats.valid,
-        radius=6.0, max_distance=max_hamming,
-    )
-    sigma2 = base ** (2.0 * feats.level[idx].to(torch.float32))
-    res = pose_only_optimize(
-        res.pose, cam, lm_pos, feats.xy[idx], ok, sigma2=sigma2, iters=4
-    )
-    # invert the association: frame keypoint -> store landmark id. Where two
-    # landmarks claim one keypoint the later row wins, as JAX's sequential
-    # CPU scatter does.
-    n_kp = feats.xy.shape[0]
-    good_lm = ok & res.inlier
-    rows = torch.arange(sel.shape[0], device=dev)
-    winner = torch.full((n_kp + 1,), -1, dtype=torch.int64, device=dev)
-    winner.scatter_reduce_(
-        0, torch.where(good_lm, idx, n_kp), torch.where(good_lm, rows, -1),
-        reduce="amax",
-    )
-    winner = winner[:n_kp]
-    kp_lm = torch.where(
-        winner >= 0, sel[torch.clamp(winner, min=0)], -1
-    ).to(torch.int32)
-    vis_upd = torch.zeros((P,), dtype=torch.int32, device=dev)
-    vis_upd.index_add_(0, sel, visible2.to(torch.int32))
-    found_upd = torch.zeros((P,), dtype=torch.int32, device=dev)
-    found_upd.index_add_(0, sel, good_lm.to(torch.int32))
-    m = m._replace(
-        lm_n_visible=m.lm_n_visible + vis_upd,
-        lm_n_found=m.lm_n_found + found_upd,
-    )
-    return TrackResult(
-        pose=res.pose,
-        n_inliers=res.n_inliers,
-        kp_lm_idx=kp_lm,
-        n_visible=torch.sum(visible2).to(torch.int32),
-        map=m,
-        sigma_pos=res.sigma_pos,
-        sigma_rot=res.sigma_rot,
-    )
+        idx, ok = match_projected(
+            lm_desc, uv_pred, visible, feats.desc, feats.xy, feats.valid,
+            radius=radius, max_distance=max_hamming,
+        )
+        sigma2 = base ** (2.0 * feats.level[idx].to(torch.float32))
+        res = pose_only_optimize(
+            pose_pred, cam, lm_pos, feats.xy[idx], ok, sigma2=sigma2, iters=6
+        )
+        # second stage: re-project with the optimized pose, tight window
+        p_c2 = lm_pos @ res.pose.R.T + res.pose.t
+        uv_pred2 = project_pinhole(cam, p_c2)
+        visible2 = lm_valid & (p_c2[:, 2] > 1e-3)
+        idx, ok = match_projected(
+            lm_desc, uv_pred2, visible2, feats.desc, feats.xy, feats.valid,
+            radius=6.0, max_distance=max_hamming,
+        )
+        sigma2 = base ** (2.0 * feats.level[idx].to(torch.float32))
+        res = pose_only_optimize(
+            res.pose, cam, lm_pos, feats.xy[idx], ok, sigma2=sigma2, iters=4
+        )
+        # invert the association: frame keypoint -> store landmark id. Where two
+        # landmarks claim one keypoint the later row wins, as JAX's sequential
+        # CPU scatter does.
+        n_kp = feats.xy.shape[0]
+        good_lm = ok & res.inlier
+        rows = torch.arange(sel.shape[0], device=dev)
+        winner = torch.full((n_kp + 1,), -1, dtype=torch.int64, device=dev)
+        winner.scatter_reduce_(
+            0, torch.where(good_lm, idx, n_kp), torch.where(good_lm, rows, -1),
+            reduce="amax",
+        )
+        winner = winner[:n_kp]
+        kp_lm = torch.where(
+            winner >= 0, sel[torch.clamp(winner, min=0)], -1
+        ).to(torch.int32)
+        vis_upd = torch.zeros((P,), dtype=torch.int32, device=dev)
+        vis_upd.index_add_(0, sel, visible2.to(torch.int32))
+        found_upd = torch.zeros((P,), dtype=torch.int32, device=dev)
+        found_upd.index_add_(0, sel, good_lm.to(torch.int32))
+        m = m._replace(
+            lm_n_visible=m.lm_n_visible + vis_upd,
+            lm_n_found=m.lm_n_found + found_upd,
+        )
+        return TrackResult(
+            pose=res.pose,
+            n_inliers=res.n_inliers,
+            kp_lm_idx=kp_lm,
+            n_visible=torch.sum(visible2).to(torch.int32),
+            map=m,
+            sigma_pos=res.sigma_pos,
+            sigma_rot=res.sigma_rot,
+        )
 
 
 def insert_keyframe(m: MapStore, pose: SE3, cam: PinholeCamera,
@@ -202,14 +204,15 @@ def insert_keyframe(m: MapStore, pose: SE3, cam: PinholeCamera,
                     cfg: TrackerConfig) -> MapStore:
     """Cull poorly matched landmarks, write the frame as a keyframe and
     triangulate new landmarks against the previous keyframe."""
-    poor = (m.lm_n_visible >= 8) & (
-        m.lm_n_found.to(torch.float32) < 0.25 * m.lm_n_visible.to(torch.float32)
-    )
-    m = m._replace(lm_valid=m.lm_valid & ~poor)
-    m = insert_keyframe_slots(
-        m, pose.R, pose.t, feats.xy, feats.desc, feats.valid, kp_lm_idx, frame_id
-    )
-    return triangulate_new_landmarks(m, cam, cfg)
+    with timing.span("insert_keyframe"):
+        poor = (m.lm_n_visible >= 8) & (
+            m.lm_n_found.to(torch.float32) < 0.25 * m.lm_n_visible.to(torch.float32)
+        )
+        m = m._replace(lm_valid=m.lm_valid & ~poor)
+        m = insert_keyframe_slots(
+            m, pose.R, pose.t, feats.xy, feats.desc, feats.valid, kp_lm_idx, frame_id
+        )
+        return triangulate_new_landmarks(m, cam, cfg)
 
 
 def triangulate_new_landmarks(m: MapStore, cam: PinholeCamera,
@@ -439,74 +442,75 @@ class MonoTracker:
         nav_prior: an SE3 Tcw prediction from navigation data, used in place
         of the constant-velocity prediction (TRACKING) or the last pose
         (LOST)."""
-        self._adopt_pending_map()
-        feats = self._extract(image)
-        self.last_feats = feats
-        st = self.status
-        if st == TrackerStatus.NOT_INITIALIZED and self._needs_two_frames:
-            self._init_feats = feats
-            self._init_frame_id = self.frame_id
-            self.status = TrackerStatus.INITIALIZING
-            self._record(None)
-        elif st == TrackerStatus.NOT_INITIALIZED:
-            ok = self._try_initialize(feats, aux)
-            if ok:
-                self.status = TrackerStatus.TRACKING
-            self._record(self.pose if ok else None)
-        elif st == TrackerStatus.INITIALIZING:
-            if self._try_initialize(feats, aux):
-                self.status = TrackerStatus.TRACKING
-                self._record(self.pose)
-            else:
-                # re-anchor the reference frame now and then
-                if self.frame_id - self._init_frame_id > 20:
-                    self._init_feats = feats
-                    self._init_frame_id = self.frame_id
+        with timing.span("engine_process", self.frame_id):
+            self._adopt_pending_map()
+            feats = self._extract(image)
+            self.last_feats = feats
+            st = self.status
+            if st == TrackerStatus.NOT_INITIALIZED and self._needs_two_frames:
+                self._init_feats = feats
+                self._init_frame_id = self.frame_id
+                self.status = TrackerStatus.INITIALIZING
                 self._record(None)
-        else:  # TRACKING or LOST
-            lost = st == TrackerStatus.LOST
-            if nav_prior is not None:
-                pred = SE3(*(torch.as_tensor(x, dtype=torch.float32, device=self.device)
-                             for x in nav_prior))
-            elif lost:
-                pred = self.pose
-            else:
-                pred = se3_compose(self.velocity, self.pose)
-            radius = self.cfg.match_radius_lost if lost else self.cfg.match_radius
-            tr = track_frame(
-                self.map, pred, self.cam, feats, radius,
-                self.cfg.match_max_hamming, local_cap=self._local_cap(),
-            )
-            self.map = tr.map
-            n_inl = int(tr.n_inliers)
-            self.last_n_inliers = n_inl
-            self.last_sigma_pos = tr.sigma_pos.cpu().numpy()
-            self.last_sigma_rot = float(tr.sigma_rot)
-            if n_inl >= self.cfg.min_inliers:
-                prev_pose = self.pose
-                self.pose = tr.pose
-                v_meas = se3_compose(tr.pose, se3_inverse(prev_pose))
-                self.velocity = se3_exp(self.cfg.velocity_gain * se3_log(v_meas))
-                self.status = TrackerStatus.TRACKING
-                if self._keyframe_needed(n_inl) and self.mapping_enabled:
-                    self._adopt_pending_map()
-                    self._drain_compact_stats()
-                    if self._kf_count >= self.cfg.map_cfg.max_keyframes - 1:
-                        self._compact(force_min_one=True)
+            elif st == TrackerStatus.NOT_INITIALIZED:
+                ok = self._try_initialize(feats, aux)
+                if ok:
+                    self.status = TrackerStatus.TRACKING
+                self._record(self.pose if ok else None)
+            elif st == TrackerStatus.INITIALIZING:
+                if self._try_initialize(feats, aux):
+                    self.status = TrackerStatus.TRACKING
+                    self._record(self.pose)
+                else:
+                    # re-anchor the reference frame now and then
+                    if self.frame_id - self._init_frame_id > 20:
+                        self._init_feats = feats
+                        self._init_frame_id = self.frame_id
+                    self._record(None)
+            else:  # TRACKING or LOST
+                lost = st == TrackerStatus.LOST
+                if nav_prior is not None:
+                    pred = SE3(*(torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                                 for x in nav_prior))
+                elif lost:
+                    pred = self.pose
+                else:
+                    pred = se3_compose(self.velocity, self.pose)
+                radius = self.cfg.match_radius_lost if lost else self.cfg.match_radius
+                tr = track_frame(
+                    self.map, pred, self.cam, feats, radius,
+                    self.cfg.match_max_hamming, local_cap=self._local_cap(),
+                )
+                self.map = tr.map
+                n_inl = int(tr.n_inliers)
+                self.last_n_inliers = n_inl
+                self.last_sigma_pos = tr.sigma_pos.cpu().numpy()
+                self.last_sigma_rot = float(tr.sigma_rot)
+                if n_inl >= self.cfg.min_inliers:
+                    prev_pose = self.pose
+                    self.pose = tr.pose
+                    v_meas = se3_compose(tr.pose, se3_inverse(prev_pose))
+                    self.velocity = se3_exp(self.cfg.velocity_gain * se3_log(v_meas))
+                    self.status = TrackerStatus.TRACKING
+                    if self._keyframe_needed(n_inl) and self.mapping_enabled:
+                        self._adopt_pending_map()
                         self._drain_compact_stats()
-                    if self._kf_count < self.cfg.map_cfg.max_keyframes:
-                        self._spawn_keyframe_pipeline(feats, tr, aux)
-                        self.last_kf_frame = self.frame_id
-                        self.inliers_at_last_kf = max(n_inl, 1)
-                self._record(self.pose)
-            else:
-                self.status = TrackerStatus.LOST
-                self.velocity = se3_identity(self.device)
-                self._record(None)
-        self.frame_id += 1
-        return self.status, (
-            self.pose if self.status == TrackerStatus.TRACKING else None
-        )
+                        if self._kf_count >= self.cfg.map_cfg.max_keyframes - 1:
+                            self._compact(force_min_one=True)
+                            self._drain_compact_stats()
+                        if self._kf_count < self.cfg.map_cfg.max_keyframes:
+                            self._spawn_keyframe_pipeline(feats, tr, aux)
+                            self.last_kf_frame = self.frame_id
+                            self.inliers_at_last_kf = max(n_inl, 1)
+                    self._record(self.pose)
+                else:
+                    self.status = TrackerStatus.LOST
+                    self.velocity = se3_identity(self.device)
+                    self._record(None)
+            self.frame_id += 1
+            return self.status, (
+                self.pose if self.status == TrackerStatus.TRACKING else None
+            )
 
     def _make_keyframe_map(self, m, pose, feats, kp_lm_idx, aux) -> MapStore:
         """The map with this frame written as a keyframe and new landmarks

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import timing
+
 
 class MapConfig(NamedTuple):
     max_keyframes: int = 64
@@ -132,84 +134,85 @@ def cull_and_compact(m: MapStore, keep_latest: int = 3, redundancy: float = 0.9,
     """Cull redundant keyframes (one per pass, up to max_cull passes), drop
     orphaned landmarks, and compact the store; see the JAX docstring for the
     redundancy rule and the capacity escape hatches."""
-    K, N = m.kf_lm_idx.shape
-    M = m.lm_pos.shape[0]
-    dev = m.lm_pos.device
-    kf_ids = torch.arange(K, dtype=torch.int32, device=dev)
-    lm_idx_c = torch.clamp(m.kf_lm_idx, min=0).to(torch.int64)
-    lm_idx_flat = lm_idx_c.reshape(-1)
-    protected = (kf_ids >= m.n_kf - keep_latest) | (kf_ids < 2)
+    with timing.span("cull_and_compact"):
+        K, N = m.kf_lm_idx.shape
+        M = m.lm_pos.shape[0]
+        dev = m.lm_pos.device
+        kf_ids = torch.arange(K, dtype=torch.int32, device=dev)
+        lm_idx_c = torch.clamp(m.kf_lm_idx, min=0).to(torch.int64)
+        lm_idx_flat = lm_idx_c.reshape(-1)
+        protected = (kf_ids >= m.n_kf - keep_latest) | (kf_ids < 2)
 
-    kf_valid, lm_n_obs = m.kf_valid, m.lm_n_obs
-    n_culled = torch.zeros((), dtype=torch.int32, device=dev)
-    for i in range(max_cull):
-        has = (m.kf_lm_idx >= 0) & m.kf_kp_valid & kf_valid[:, None]
-        red = has & (lm_n_obs[lm_idx_c] >= min_other_obs + 1)
-        n_has = torch.sum(has, dim=1)
-        frac = torch.sum(red, dim=1) / torch.clamp(n_has, min=1).to(torch.float32)
-        cullable = kf_valid & ~protected & (n_has > 0)
-        n_free = K - torch.sum(kf_valid.to(torch.int32))
-        force = (n_free < force_free) | bool(i == 0 and force_min_one)
-        score = torch.where(cullable & ((frac >= redundancy) | force), frac, -1.0)
-        cull = (kf_ids == torch.argmax(score)) & (torch.amax(score) >= 0.0)
-        dec = torch.zeros_like(lm_n_obs)
-        dec.index_add_(0, lm_idx_flat, (has & cull[:, None]).to(torch.int32).reshape(-1))
-        kf_valid = kf_valid & ~cull
-        lm_n_obs = lm_n_obs - dec
-        n_culled = n_culled + torch.sum(cull).to(torch.int32)
-    lm_valid = m.lm_valid & (lm_n_obs > 0)
+        kf_valid, lm_n_obs = m.kf_valid, m.lm_n_obs
+        n_culled = torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(max_cull):
+            has = (m.kf_lm_idx >= 0) & m.kf_kp_valid & kf_valid[:, None]
+            red = has & (lm_n_obs[lm_idx_c] >= min_other_obs + 1)
+            n_has = torch.sum(has, dim=1)
+            frac = torch.sum(red, dim=1) / torch.clamp(n_has, min=1).to(torch.float32)
+            cullable = kf_valid & ~protected & (n_has > 0)
+            n_free = K - torch.sum(kf_valid.to(torch.int32))
+            force = (n_free < force_free) | bool(i == 0 and force_min_one)
+            score = torch.where(cullable & ((frac >= redundancy) | force), frac, -1.0)
+            cull = (kf_ids == torch.argmax(score)) & (torch.amax(score) >= 0.0)
+            dec = torch.zeros_like(lm_n_obs)
+            dec.index_add_(0, lm_idx_flat, (has & cull[:, None]).to(torch.int32).reshape(-1))
+            kf_valid = kf_valid & ~cull
+            lm_n_obs = lm_n_obs - dec
+            n_culled = n_culled + torch.sum(cull).to(torch.int32)
+        lm_valid = m.lm_valid & (lm_n_obs > 0)
 
-    # landmark compaction: stable partition valid-first + index remap
-    lm_order = _stable_partition(lm_valid)
-    lm_new_of = torch.where(
-        lm_valid, torch.cumsum(lm_valid.to(torch.int32), 0) - 1, -1
-    ).to(torch.int32)
-    lm_valid_c = lm_valid[lm_order]
-    keep = lm_valid_c[:, None]
-    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    lm_pos = torch.where(keep, m.lm_pos[lm_order], 0.0)
-    lm_desc = torch.where(keep, m.lm_desc[lm_order], zero_i)
-    lm_n_obs_c = torch.where(lm_valid_c, lm_n_obs[lm_order], zero_i)
-    lm_first_kf = m.lm_first_kf[lm_order]
-    lm_n_visible = torch.where(lm_valid_c, m.lm_n_visible[lm_order], zero_i)
-    lm_n_found = torch.where(lm_valid_c, m.lm_n_found[lm_order], zero_i)
-    n_lm = torch.sum(lm_valid).to(torch.int32)
+        # landmark compaction: stable partition valid-first + index remap
+        lm_order = _stable_partition(lm_valid)
+        lm_new_of = torch.where(
+            lm_valid, torch.cumsum(lm_valid.to(torch.int32), 0) - 1, -1
+        ).to(torch.int32)
+        lm_valid_c = lm_valid[lm_order]
+        keep = lm_valid_c[:, None]
+        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+        lm_pos = torch.where(keep, m.lm_pos[lm_order], 0.0)
+        lm_desc = torch.where(keep, m.lm_desc[lm_order], zero_i)
+        lm_n_obs_c = torch.where(lm_valid_c, lm_n_obs[lm_order], zero_i)
+        lm_first_kf = m.lm_first_kf[lm_order]
+        lm_n_visible = torch.where(lm_valid_c, m.lm_n_visible[lm_order], zero_i)
+        lm_n_found = torch.where(lm_valid_c, m.lm_n_found[lm_order], zero_i)
+        n_lm = torch.sum(lm_valid).to(torch.int32)
 
-    # keyframe compaction
-    kf_order = _stable_partition(kf_valid)
-    kf_new_of = torch.where(
-        kf_valid, torch.cumsum(kf_valid.to(torch.int32), 0) - 1, -1
-    ).to(torch.int32)
-    kf_valid_c = kf_valid[kf_order]
-    eye = torch.eye(3, dtype=m.kf_R.dtype, device=dev).expand(K, 3, 3)
-    kf_R = torch.where(kf_valid_c[:, None, None], m.kf_R[kf_order], eye)
-    kf_t = torch.where(kf_valid_c[:, None], m.kf_t[kf_order], 0.0)
-    kf_frame_id = torch.where(kf_valid_c, m.kf_frame_id[kf_order], zero_i - 1)
-    kf_uv = torch.where(kf_valid_c[:, None, None], m.kf_uv[kf_order], 0.0)
-    kf_desc = torch.where(kf_valid_c[:, None, None], m.kf_desc[kf_order], zero_i)
-    kf_kp_valid = m.kf_kp_valid[kf_order] & kf_valid_c[:, None]
-    n_kf = torch.sum(kf_valid).to(torch.int32)
+        # keyframe compaction
+        kf_order = _stable_partition(kf_valid)
+        kf_new_of = torch.where(
+            kf_valid, torch.cumsum(kf_valid.to(torch.int32), 0) - 1, -1
+        ).to(torch.int32)
+        kf_valid_c = kf_valid[kf_order]
+        eye = torch.eye(3, dtype=m.kf_R.dtype, device=dev).expand(K, 3, 3)
+        kf_R = torch.where(kf_valid_c[:, None, None], m.kf_R[kf_order], eye)
+        kf_t = torch.where(kf_valid_c[:, None], m.kf_t[kf_order], 0.0)
+        kf_frame_id = torch.where(kf_valid_c, m.kf_frame_id[kf_order], zero_i - 1)
+        kf_uv = torch.where(kf_valid_c[:, None, None], m.kf_uv[kf_order], 0.0)
+        kf_desc = torch.where(kf_valid_c[:, None, None], m.kf_desc[kf_order], zero_i)
+        kf_kp_valid = m.kf_kp_valid[kf_order] & kf_valid_c[:, None]
+        n_kf = torch.sum(kf_valid).to(torch.int32)
 
-    old_lm = m.kf_lm_idx[kf_order]
-    old_c = torch.clamp(old_lm, min=0).to(torch.int64)
-    assoc = (old_lm >= 0) & lm_valid[old_c] & kf_valid_c[:, None]
-    kf_lm_idx = torch.where(assoc, lm_new_of[old_c], zero_i - 1)
+        old_lm = m.kf_lm_idx[kf_order]
+        old_c = torch.clamp(old_lm, min=0).to(torch.int64)
+        assoc = (old_lm >= 0) & lm_valid[old_c] & kf_valid_c[:, None]
+        kf_lm_idx = torch.where(assoc, lm_new_of[old_c], zero_i - 1)
 
-    # re-anchor landmarks whose first keyframe was culled to the nearest
-    # surviving earlier keyframe (falling back to the first surviving one)
-    last_valid_upto = torch.cummax(torch.where(kf_valid, kf_ids, -1), dim=0).values
-    first_valid = torch.argmax(kf_valid.to(torch.int32))
-    fk = torch.clamp(lm_first_kf, 0, K - 1).to(torch.int64)
-    fk2 = torch.where(
-        kf_valid[fk], fk, torch.maximum(last_valid_upto[fk].to(torch.int64), first_valid)
-    )
-    lm_first_kf = torch.where(lm_valid_c, kf_new_of[fk2], zero_i - 1)
+        # re-anchor landmarks whose first keyframe was culled to the nearest
+        # surviving earlier keyframe (falling back to the first surviving one)
+        last_valid_upto = torch.cummax(torch.where(kf_valid, kf_ids, -1), dim=0).values
+        first_valid = torch.argmax(kf_valid.to(torch.int32))
+        fk = torch.clamp(lm_first_kf, 0, K - 1).to(torch.int64)
+        fk2 = torch.where(
+            kf_valid[fk], fk, torch.maximum(last_valid_upto[fk].to(torch.int64), first_valid)
+        )
+        lm_first_kf = torch.where(lm_valid_c, kf_new_of[fk2], zero_i - 1)
 
-    out = m._replace(
-        lm_pos=lm_pos, lm_desc=lm_desc, lm_valid=lm_valid_c, lm_n_obs=lm_n_obs_c,
-        lm_first_kf=lm_first_kf, lm_n_visible=lm_n_visible, lm_n_found=lm_n_found,
-        kf_R=kf_R, kf_t=kf_t, kf_valid=kf_valid_c, kf_frame_id=kf_frame_id,
-        kf_uv=kf_uv, kf_desc=kf_desc, kf_kp_valid=kf_kp_valid, kf_lm_idx=kf_lm_idx,
-        n_kf=n_kf, n_lm=n_lm,
-    )
-    return CompactResult(out, kf_order, lm_order, n_culled)
+        out = m._replace(
+            lm_pos=lm_pos, lm_desc=lm_desc, lm_valid=lm_valid_c, lm_n_obs=lm_n_obs_c,
+            lm_first_kf=lm_first_kf, lm_n_visible=lm_n_visible, lm_n_found=lm_n_found,
+            kf_R=kf_R, kf_t=kf_t, kf_valid=kf_valid_c, kf_frame_id=kf_frame_id,
+            kf_uv=kf_uv, kf_desc=kf_desc, kf_kp_valid=kf_kp_valid, kf_lm_idx=kf_lm_idx,
+            n_kf=n_kf, n_lm=n_lm,
+        )
+        return CompactResult(out, kf_order, lm_order, n_culled)

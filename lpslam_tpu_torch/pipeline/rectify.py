@@ -25,6 +25,7 @@ import torch
 from ..geometry.camera import (omni_undistort_maps, rectify_maps_stereo,
                                undistort_map_fisheye, undistort_map_radtan)
 from ..kernels.remap import remap_bilinear
+from ..utils import timing
 from .config import CameraConfig, ConfigOptions
 from .processors import ProcessorBase
 from .queues import CameraQueueEntry
@@ -87,16 +88,17 @@ class RectifyProcessor(ProcessorBase):
         return torch.as_tensor(np.asarray(img, np.float32), device=self.device)
 
     def process_image(self, entry: CameraQueueEntry) -> CameraQueueEntry:
-        if self._maps is None:
+        with timing.span("rectify"):
+            if self._maps is None:
+                return entry
+            map_l, map_r = self._maps
+            if map_r is not None and entry.image_second is not None:
+                left = remap_bilinear(self._upload(entry.image), map_l)
+                right = remap_bilinear(self._upload(entry.image_second), map_r)
+                entry.image = left.cpu().numpy()
+                entry.image_second = right.cpu().numpy()
+            else:
+                entry.image = remap_bilinear(self._upload(entry.image), map_l).cpu().numpy()
+            if entry.aux is not None and np.ndim(entry.aux) == 2:
+                entry.aux = remap_bilinear(self._upload(entry.aux), map_l).cpu().numpy()
             return entry
-        map_l, map_r = self._maps
-        if map_r is not None and entry.image_second is not None:
-            left = remap_bilinear(self._upload(entry.image), map_l)
-            right = remap_bilinear(self._upload(entry.image_second), map_r)
-            entry.image = left.cpu().numpy()
-            entry.image_second = right.cpu().numpy()
-        else:
-            entry.image = remap_bilinear(self._upload(entry.image), map_l).cpu().numpy()
-        if entry.aux is not None and np.ndim(entry.aux) == 2:
-            entry.aux = remap_bilinear(self._upload(entry.aux), map_l).cpu().numpy()
-        return entry

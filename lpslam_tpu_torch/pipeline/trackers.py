@@ -50,6 +50,7 @@ from ..geometry.se3 import SE3, se3_compose, se3_inverse
 from ..geometry.so3 import rot_to_quat
 from ..kernels.orb import OrbParams
 from ..mapstore.store import MapConfig
+from ..utils import timing
 from .config import ConfigOptions
 from .queues import CameraQueueEntry, SensorQueueEntry
 
@@ -241,6 +242,7 @@ class VSLAMTracker(TrackerBase):
         self._lost_since: Optional[float] = None
         self._laser_buffer: list = []
         self._frame_times: list = []
+        self._handed_out: list = []       # traced: frame ids whose results this call returns
         self._mask_pending = bool(self.cfg["mask_radius"] or self.cfg["mask_image"])
         self._sensor_queue = None
         self._last_map_emit = 0.0
@@ -307,6 +309,17 @@ class VSLAMTracker(TrackerBase):
                       sensor_values=()) -> list:
         if self.cfg["wait_for_navigation_data"] and nav_odom is None:
             return []
+        if not timing.ENABLED:
+            return self._process_image(entry, nav_odom, nav_map, sensor_values)
+        # the engine's id for this frame: buffered chunk frames take the next ones
+        fid = self.engine.frame_id + len(self._chunk_buf)
+        with timing.span("process_image", fid):
+            timing.stamp(fid, "in")
+            results = self._process_image(entry, nav_odom, nav_map, sensor_values)
+        self._stamp_handed_out()
+        return results
+
+    def _process_image(self, entry, nav_odom, nav_map, sensor_values) -> list:
         if self._mask_pending:
             self._configure_mask(np.shape(entry.image)[:2])
         for sv in sensor_values:
@@ -335,6 +348,12 @@ class VSLAMTracker(TrackerBase):
             return flushed + res if flushed else res
         return self._process_host(entry, nav_odom, nav_prior)
 
+    def _stamp_handed_out(self) -> None:
+        """Stamp `out` on the frames whose results the returning call hands out."""
+        for fid in self._handed_out:
+            timing.stamp(fid, "out")
+        self._handed_out.clear()
+
     def _time_frame(self, seconds: float) -> None:
         self._frame_times.append(seconds)
         if len(self._frame_times) > 30:
@@ -346,7 +365,11 @@ class VSLAMTracker(TrackerBase):
         self._host_dirty = True
         t0 = time.monotonic()
         aux = entry.image_second if self.cfg["mode"] == "stereo" else entry.aux
+        fid = self.engine.frame_id if timing.ENABLED else None
         st, pose = self.engine.process(entry.image, aux=aux, nav_prior=nav_prior)
+        if fid is not None:
+            timing.stamp(fid, "pose")
+            self._handed_out.append(fid)
         self._time_frame(time.monotonic() - t0)
         self._maybe_emit_map(entry.timestamp)
 
@@ -459,6 +482,7 @@ class VSLAMTracker(TrackerBase):
         so the final map is corrected."""
         out = self._chunk_drain_all()
         self._loop_drain()
+        self._stamp_handed_out()
         return out
 
     def _emit_chunk_results(self, drained) -> list:
@@ -468,6 +492,8 @@ class VSLAMTracker(TrackerBase):
         out = []
         for i in range(len(sts)):
             fid, entry = self._chunk_inflight.pop(0)
+            if timing.ENABLED:
+                self._handed_out.append(fid)
             tracking = sts[i] == int(TrackerStatus.TRACKING)
             self.engine.trajectory.append(
                 (fid, SE3(pR[i], pt[i]) if tracking else None, TrackerStatus(int(sts[i])))

@@ -4,5 +4,5 @@ from .transformations import (
     vehicle_pose_from_marker_measurement,
 )
 from .pid import PidController
-from .timing import ScopeTimer, TimingStats, device_trace
+from .timing import ScopeTimer, TimingStats
 from .math import to_rad, to_degree

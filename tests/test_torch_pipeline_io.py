@@ -301,7 +301,7 @@ def test_resize_nearest_matches_cv2():
                                       cv2.resize(src, (w, h), interpolation=cv2.INTER_NEAREST))
 
 
-def test_utils_match_jax(tmp_path):
+def test_utils_match_jax():
     from lpslam_tpu import utils as ju
     from lpslam_tpu_torch import utils as tu
 
@@ -322,6 +322,3 @@ def test_utils_match_jax(tmp_path):
     with tu.ScopeTimer("x", stats):
         sum(range(1000))
     assert stats.mean("x") > 0 and stats.mean("y") == 0.0
-    with tu.device_trace(str(tmp_path)):
-        torch.ones(8).cumsum(0)
-    assert list(tmp_path.iterdir())                   # a trace was written
