@@ -9,7 +9,7 @@ policy, the keyframe insert and the rate-capped windowed ``local_ba``. The
 depth modes insert keyframes with ``insert_keyframe_depth`` plus a two-view
 pass for far points; stereo extracts the right eye only on keyframes. The
 keyframe and BA decisions are taken on the host from ONE device read per
-frame (``.tolist()`` of the packed inlier and capacity counters); the JAX
+frame (``.tolist()`` of the packed inlier and keyframe counters); the JAX
 scan takes them on the device under ``lax.cond``. The chunk boundary runs
 the keyframe cull/compaction. Capturing the non-keyframe step in a CUDA
 graph is later work.
@@ -109,7 +109,6 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
     device = torch.device(device)
     K = cfg.map_cfg.max_keyframes
     M = cfg.map_cfg.max_landmarks
-    N = cfg.map_cfg.num_keypoints
     cap = cfg.track_local_cap
     local_cap = cap if cap and cap < M else None
     ratio = np.float32(cfg.kf_inlier_ratio)
@@ -141,12 +140,10 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
         radius = cfg.match_radius_lost if lost else cfg.match_radius
         tr = track_frame(
             carry.m, pred, cam, feats, radius, cfg.match_max_hamming,
-            local_cap=local_cap,
+            local_cap=local_cap, image_hw=tuple(left.shape[-2:]),
         )
-        # the frame's one device read: inliers and the capacity counters
-        n_inl, n_kf, n_lm = torch.stack(
-            [tr.n_inliers, tr.map.n_kf, tr.map.n_lm]
-        ).tolist()
+        # the frame's one device read: inliers and the keyframe counter
+        n_inl, n_kf = torch.stack([tr.n_inliers, tr.map.n_kf]).tolist()
         ok = n_inl >= cfg.min_inliers
         new_pose = tr.pose if ok else pose
         if ok:
@@ -160,7 +157,12 @@ def make_chunk_step(cam: PinholeCamera, cfg: TrackerConfig, device, mask=None,
             since >= cfg.kf_max_interval
             or n_inl < ratio * np.float32(carry.inliers_at_last_kf)
         )
-        kf = ok and want and mapping_enabled and n_kf < K and n_lm < M - N
+        # No landmark-headroom gate, as on the host path: a keyframe at the
+        # landmark store's wall makes only the landmarks that fit, and keeps the
+        # boundary's cull and compaction running, which free slots. The JAX
+        # scan's gate (n_lm < M - N) stops keyframes at the wall for good, since
+        # only a chunk that inserted a keyframe compacts: the map then freezes.
+        kf = ok and want and mapping_enabled and n_kf < K
         m2 = tr.map
         if kf and mode == "mono":
             m2 = insert_keyframe(

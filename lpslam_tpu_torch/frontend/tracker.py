@@ -113,12 +113,17 @@ def _row(arr, k):
 
 def track_frame(m: MapStore, pose_pred: SE3, cam: PinholeCamera,
                 feats: OrbFeatures, radius, max_hamming: int,
-                local_cap: Optional[int] = None) -> TrackResult:
+                local_cap: Optional[int] = None, *, image_hw) -> TrackResult:
     """Project the map into the predicted view, match in windows, optimize
     the pose, re-project and re-match in a tight window, optimize again.
 
     local_cap: match against at most this many landmarks — visible first,
-    then by found ratio, ties to the lowest slot (a stable sort)."""
+    then by found ratio, ties to the lowest slot (a stable sort).
+    "Visible" is in front with u, v >= 0 (the JAX package's test). When more
+    landmarks pass it than the cap holds, those projecting inside the frame
+    of size image_hw = (H, W) rank first, so that the cap does not cut
+    landmarks in view for ones off the frame's right or bottom edge. Below
+    the cap the order is the JAX package's, which has no image_hw."""
     with timing.span("track_frame"):
         P = m.lm_pos.shape[0]
         dev = m.lm_pos.device
@@ -135,6 +140,11 @@ def track_frame(m: MapStore, pose_pred: SE3, cam: PinholeCamera,
                 m.lm_n_visible.to(torch.float32) + 1.0
             )
             score = visible_full.to(torch.float32) * 2.0 + found_ratio
+            in_view = (visible_full & (uv_pred_full[:, 0] < image_hw[1])
+                       & (uv_pred_full[:, 1] < image_hw[0]))
+            # a device-side choice: below the cap the order is unchanged
+            score = torch.where(torch.sum(visible_full) > local_cap,
+                                score + in_view.to(torch.float32), score)
             _, sel = topk_stable(score, local_cap)
         else:
             sel = torch.arange(P, device=dev)
@@ -480,6 +490,7 @@ class MonoTracker:
                 tr = track_frame(
                     self.map, pred, self.cam, feats, radius,
                     self.cfg.match_max_hamming, local_cap=self._local_cap(),
+                    image_hw=tuple(image.shape[-2:]),
                 )
                 self.map = tr.map
                 n_inl = int(tr.n_inliers)

@@ -453,6 +453,7 @@ class VSLAMTracker(TrackerBase):
             self._host_dirty = False
         buf, self._chunk_buf = self._chunk_buf, []
         start_fid = self.engine.frame_id
+        n_queued = len(self.engine._pending_compacts)
         t0 = time.monotonic()
         ct.process_chunk(self._stack_chunk(buf))
         self._time_frame((time.monotonic() - t0) / len(buf))
@@ -461,6 +462,13 @@ class VSLAMTracker(TrackerBase):
         self._maybe_emit_map(entry.timestamp)
         if self.cfg["loop_closure"]:
             self._chunk_loop_boundary(ct)
+        else:
+            # no slot-keyed side tables to fix: drop the compactions queued
+            # before this chunk, without a device read. The chunk started from
+            # their compacted map, so ct.sync() sets the keyframe count past
+            # them; only this boundary's compaction is still to be counted.
+            del self.engine._pending_compacts[:n_queued]
+            self.engine._compactions.clear()
         return results
 
     def _chunk_drain_all(self) -> list:

@@ -71,6 +71,12 @@ one; run them there with
 - dist/ and native/ on the card: ``distributed_bundle_adjust`` in a world of
   one over NCCL (and on the default mesh) against the CPU, and the native
   queue carrying CUDA tensors between threads.
+- ``pose_only_optimize`` through its CUDA graphs bit-equal, field by field,
+  to its eager body on the same inputs: track_frame's two calls (4096
+  landmarks, 6 iterations, then 4 from the first call's pose, one graph
+  each, captured once) and relocalization's (8 iterations, variances of
+  ones); a call's result stays as it was after the next call replays the
+  same graph with other inputs.
 """
 import numpy as np
 import pytest
@@ -646,3 +652,75 @@ def test_solvers_on_card_repeat_bit_for_bit(cuda_device):
     outs = [detector.correct_loop(m, 11, 1, S.R, S.t, S.s, min_shared=5) for _ in range(2)]
     for k in ("kf_R", "kf_t", "lm_pos"):
         assert torch.equal(getattr(outs[0], k), getattr(outs[1], k)), k
+
+
+def _pose_problem(device, n, seed):
+    """A pose off the one that projects n landmarks to their pixels, with
+    pixel noise, outliers, invalid rows and variances of three levels."""
+    from lpslam_tpu_torch.geometry.camera import PinholeCamera
+    from lpslam_tpu_torch.geometry.se3 import SE3
+    from lpslam_tpu_torch.geometry.so3 import so3_exp
+
+    rng = np.random.default_rng(seed)
+    p_w = np.concatenate([rng.uniform(-2, 2, (n, 2)), rng.uniform(3, 6, (n, 1))], 1)
+    uv = p_w[:, :2] / p_w[:, 2:] * 380.0 + [320.0, 240.0] + rng.normal(0, 0.7, (n, 2))
+    uv[: n // 10] += rng.uniform(-40, 40, (n // 10, 2))
+    valid = torch.from_numpy(rng.uniform(size=n) > 0.05).to(device)
+
+    def T(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    turn = rng.normal(0, 0.02, 3)
+    pose0 = SE3(so3_exp(T(turn)), T(rng.normal(0, 0.04, 3)))
+    cam = PinholeCamera.make(380.0, 380.0, 320.0, 240.0, device=device)
+    return pose0, cam, T(p_w), T(uv), valid, T(1.44 ** rng.integers(0, 3, n))
+
+
+def _fields(res):
+    return (*res.pose, *res[1:])
+
+
+def _assert_equal_results(got, want):
+    for name, a, b in zip(("R", "t", *want._fields[1:]), _fields(got), _fields(want)):
+        assert a.device == b.device and torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", ["track_frame", "relocalize"])
+def test_graphed_pose_opt_equals_eager(cuda_device, monkeypatch, case):
+    from lpslam_tpu_torch.frontend import pose_opt
+
+    monkeypatch.setattr(pose_opt, "_GRAPHS", {})
+    if case == "relocalize":
+        pose0, cam, p_w, uv, valid, _ = _pose_problem(cuda_device, 1200, 3)
+        ones = torch.ones_like(uv[:, 0])
+        got = pose_opt.pose_only_optimize(pose0, cam, p_w, uv, valid, sigma2=ones, iters=8)
+        want = pose_opt._pose_only_optimize_eager(pose0, cam, p_w, uv, valid, ones, 8)
+        _assert_equal_results(got, want)
+        assert len(pose_opt._GRAPHS) == 1 and int(got.n_inliers) > 900
+        return
+    pose0, cam, p_w, uv, valid, s2 = _pose_problem(cuda_device, 4096, 2)
+    for rnd in range(2):                  # the second round replays, captures nothing
+        got = pose_opt.pose_only_optimize(pose0, cam, p_w, uv, valid, sigma2=s2, iters=6)
+        want = pose_opt._pose_only_optimize_eager(pose0, cam, p_w, uv, valid, s2, 6)
+        _assert_equal_results(got, want)
+        got = pose_opt.pose_only_optimize(got.pose, cam, p_w, uv, valid, sigma2=s2, iters=4)
+        want = pose_opt._pose_only_optimize_eager(want.pose, cam, p_w, uv, valid, s2, 4)
+        _assert_equal_results(got, want)
+        assert len(pose_opt._GRAPHS) == 2 and int(got.n_inliers) > 3000
+
+
+def test_graphed_pose_opt_results_survive_the_next_replay(cuda_device, monkeypatch):
+    from lpslam_tpu_torch.frontend import pose_opt
+
+    monkeypatch.setattr(pose_opt, "_GRAPHS", {})
+    a = _pose_problem(cuda_device, 4096, 4)
+    b = _pose_problem(cuda_device, 4096, 5)
+    first = pose_opt.pose_only_optimize(*a, iters=6)
+    kept = [x.clone() for x in _fields(first)]
+    second = pose_opt.pose_only_optimize(*b, iters=6)
+    assert len(pose_opt._GRAPHS) == 1
+    for x, y in zip(_fields(first), kept):
+        assert torch.equal(x, y)
+    _assert_equal_results(first, pose_opt._pose_only_optimize_eager(*a, iters=6))
+    _assert_equal_results(second, pose_opt._pose_only_optimize_eager(*b, iters=6))
+    assert not torch.equal(first.pose.t, second.pose.t)

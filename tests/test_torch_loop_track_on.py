@@ -237,7 +237,8 @@ def test_track_frame_after_correction_given_jax_features(closure, tmp_path):
     rj = jax_track_frame(ej.map, jax_compose(ej.velocity, ej.pose), ej.cam, fj,
                          cfg.match_radius, cfg.match_max_hamming, local_cap=cap)
     rt = track_frame(et.map, se3_compose(et.velocity, et.pose), et.cam, ft,
-                     cfg.match_radius, cfg.match_max_hamming, local_cap=cap)
+                     cfg.match_radius, cfg.match_max_hamming, local_cap=cap,
+                     image_hw=frames.raw[frame].shape[-2:])
     assert int(rt.n_inliers) == int(rj.n_inliers) >= cfg.min_inliers
     np.testing.assert_array_equal(rt.kp_lm_idx.numpy(), np.asarray(rj.kp_lm_idx))
     np.testing.assert_allclose(rt.pose.R.numpy(), np.asarray(rj.pose.R), atol=1e-5)

@@ -14,6 +14,8 @@ frames (the JAX package's synthetic orbit at 120x160) and the same maps.
 - `mapping: false` after loading a map, and set_mapping_mode(False) on the
   host path: no keyframe is inserted in either package; in the port's
   chunk loop too (the JAX package's chunk loop keeps its build-time switch).
+- The port's chunk loop without loop closing keeps at most one boundary
+  compaction queued over a long run, and its keyframe count stays the map's.
 - map_file: a map saved by one package on stop() loads into the other's
   tracker as LOST, and both track the next frames the same way.
 - get_features (boundary, transform), export_csv and get_occupancy_map with
@@ -272,6 +274,30 @@ def test_set_mapping_mode_reaches_the_chunk_loop():
     assert chunks == [8, 8]
     assert [s.name for _, _, s in pt.engine.trajectory[28:]] == ["TRACKING"] * 16
     assert pt.engine.n_keyframes == n_kf
+
+
+def test_chunk_path_without_loop_closing_keeps_one_compaction_queued():
+    """The port's own: without loop closing nothing reads a compaction's
+    slot permutation, so the chunk path keeps queued at most the newest
+    boundary's compaction (each holds a whole compacted map) however long
+    it runs, and once it is read the engine's keyframe count is the map's."""
+    seq = make_sequence(num_frames=75, h=120, w=160, seed=1, motion="orbit", fx=115.0)
+    K = seq.K
+    pt = ttr.VSLAMTracker(TCam.make(K[0, 0], K[1, 1], K[0, 2], K[1, 2], device="cpu"),
+                          dict(BASE, max_keyframes=8, chunk_size=8), device="cpu")
+    eng, queued = pt.engine, []
+    enqueue = eng._queue_compaction
+    eng._queue_compaction = lambda res: (queued.append(pt._chunked is not None), enqueue(res))
+    for t in range(len(seq.images)):
+        pt.process_image(CameraQueueEntry(t / 20.0, seq.images[t]))
+        assert len(eng._pending_compacts) <= 1 and eng._compactions == [], t
+    pt.flush()
+    assert sum(queued) >= 5, queued      # the chunk path compacted, chunk after chunk
+    eng._drain_compact_stats()
+    assert eng._kf_count == int(eng.map.n_kf)
+    names = [s.name for _, _, s in eng.trajectory]
+    assert len(names) == 75 and names.index("TRACKING") < 20
+    assert set(names[names.index("TRACKING"):]) == {"TRACKING"}
 
 
 @pytest.mark.parametrize("saver", ["jax", "torch"])

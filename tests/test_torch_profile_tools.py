@@ -10,7 +10,9 @@ products, projection residuals and Jacobians); gj_max_err < 1e-3. The
 convergence tool's local_ba on a JAX map carried over by convert.py gives
 JAX's final cost within the BA parity tolerance (1e-3 relative) at 4, 8
 and 24 iterations. The ablation's rows report the hook values their child
-processes read. Without a card, a tool asked for the card refuses.
+processes read. Without a card, a tool asked for the card refuses, and so
+does time_pose_opt_graph.py, whose pose problem the solve takes to its
+inliers on the CPU.
 """
 import json
 import sys
@@ -222,3 +224,16 @@ def local_ba_spread(seeds=range(8), iters=(4, 6, 8, 12, 16, 24), covisibility=Tr
 if __name__ == "__main__":
     # PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_profile_tools.py [--temporal]
     local_ba_spread(covisibility="--temporal" not in sys.argv)
+
+
+def test_pose_opt_graph_timer_refuses_without_a_card(monkeypatch, capsys):
+    import time_pose_opt_graph as tool
+    from lpslam_tpu_torch.frontend.pose_opt import pose_only_optimize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main(["--n", "64"]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err
+    # the problem it times is one the solve takes to its inliers
+    pose0, cam, p_w, uv, valid, s2 = tool.pose_problem("cpu", 512, seed=2)
+    res = pose_only_optimize(pose0, cam, p_w, uv, valid, sigma2=s2, iters=6)
+    assert int(res.n_inliers) > 0.8 * int(valid.sum())

@@ -13,7 +13,13 @@ the program:
   keypoints) with tracing on: every frame has in <= pose <= out; the spans
   nest process_image > process_chunk > chunk_frame > track_frame > two
   pose_only_optimize a frame; poses and map are bit-equal to the same run
-  with tracing off.
+  with tracing off;
+- pose_only_optimize on CPU tensors returns exactly what its eager body
+  returns, records no pose_opt_graph_* span and captures no graph;
+- on the card (marked ``cuda``, skipped here), the same small run with
+  pose_only_optimize's CUDA graphs is bit-equal to the run with the graphed
+  path patched to the eager body, and every pose_only_optimize span holds
+  exactly one pose_opt_graph_replay.
 """
 import time
 
@@ -21,7 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from lpslam_tpu_torch.frontend import pose_opt
 from lpslam_tpu_torch.geometry import PinholeCamera
+from lpslam_tpu_torch.geometry.se3 import SE3
+from lpslam_tpu_torch.geometry.so3 import so3_exp
 from lpslam_tpu_torch.io.synthetic import make_sequence
 from lpslam_tpu_torch.pipeline.queues import CameraQueueEntry
 from lpslam_tpu_torch.pipeline.trackers import VSLAMTracker
@@ -131,10 +140,10 @@ def seq():
     return make_sequence(num_frames=FRAMES, h=120, w=160, seed=1, motion="orbit", fx=115.0)
 
 
-def _drive(seq):
+def _drive(seq, device="cpu"):
     K = seq.K
-    tr = VSLAMTracker(PinholeCamera.make(K[0, 0], K[1, 1], K[0, 2], K[1, 2], device="cpu"),
-                      dict(CONFIG), device="cpu")
+    tr = VSLAMTracker(PinholeCamera.make(K[0, 0], K[1, 1], K[0, 2], K[1, 2], device=device),
+                      dict(CONFIG), device=device)
     results = []
     for t in range(FRAMES):
         results += tr.process_image(CameraQueueEntry(timestamp=t / 20.0,
@@ -221,3 +230,84 @@ def test_spans_nest_down_to_two_pose_optimizations_a_frame(runs):
     assert {"chunk_extract", "chunk_boundary", "engine_process", "insert_keyframe",
             "local_ba"} <= names
     assert snap["totals"]["chunk_frame"][1] == len(frames)
+
+
+def _pose_problem(n, seed):
+    """A pose a few degrees and centimetres off the one that projects n
+    landmarks to their pixels, with pixel noise, outliers, invalid rows and
+    per-point variances of three pyramid levels."""
+    rng = np.random.default_rng(seed)
+    p_w = np.concatenate([rng.uniform(-2, 2, (n, 2)), rng.uniform(3, 6, (n, 1))], 1)
+    uv = p_w[:, :2] / p_w[:, 2:] * 300.0 + [320.0, 240.0] + rng.normal(0, 0.7, (n, 2))
+    uv[: n // 10] += rng.uniform(-40, 40, (n // 10, 2))
+    level = rng.integers(0, 3, n)
+    valid = torch.from_numpy(rng.uniform(size=n) > 0.05)
+
+    def T(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    pose0 = SE3(so3_exp(T([0.02, -0.03, 0.01])), T([0.05, -0.04, 0.03]))
+    cam = PinholeCamera.make(300.0, 300.0, 320.0, 240.0, device="cpu")
+    return pose0, cam, T(p_w), T(uv), valid, T(1.44 ** level)
+
+
+@pytest.mark.parametrize("iters,sigma", [(6, "levels"), (4, "levels"), (8, "ones"),
+                                         (10, None)])
+def test_pose_opt_on_the_cpu_runs_its_eager_body(monkeypatch, iters, sigma):
+    monkeypatch.setattr(pose_opt, "_GRAPHS", {})
+    pose0, cam, p_w, uv, valid, s2 = _pose_problem(700, iters)
+    s2 = {"levels": s2, "ones": torch.ones_like(s2), None: None}[sigma]
+    timing.enable()
+    got = pose_opt.pose_only_optimize(pose0, cam, p_w, uv, valid, sigma2=s2, iters=iters)
+    timing.disable()
+    want = pose_opt._pose_only_optimize_eager(pose0, cam, p_w, uv, valid, s2, iters)
+    for a, b in zip((*got.pose, *got[1:]), (*want.pose, *want[1:])):
+        assert torch.equal(a, b)
+    assert int(got.n_inliers) > 500
+    assert [s[0] for s in timing.snapshot()["spans"]] == ["pose_only_optimize"]
+    assert pose_opt._GRAPHS == {}
+
+
+@pytest.mark.cuda
+def test_graphed_pose_opt_leaves_the_run_bit_equal_on_card(seq, monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
+    monkeypatch.setattr(pose_opt, "_GRAPHS", {})
+    timing.enable()
+    tr1, res1, map1 = _drive(seq, "cuda")
+    timing.disable()
+    snap = timing.snapshot()
+    monkeypatch.setattr(pose_opt, "_graphed", pose_opt._pose_only_optimize_eager)
+    tr0, res0, map0 = _drive(seq, "cuda")
+    assert tr1._chunked is not None      # the chunk loop ran
+    assert len(res0) == len(res1) > FRAMES // 2
+    for a, b in zip(res0, res1):
+        assert a.timestamp == b.timestamp and a.valid == b.valid
+        assert np.array_equal(a.position, b.position)
+        assert np.array_equal(a.orientation_wxyz, b.orientation_wxyz)
+    assert [(f, s) for f, _, s in tr0.engine.trajectory] == \
+        [(f, s) for f, _, s in tr1.engine.trajectory]
+    for k in map0:
+        assert torch.equal(map0[k], map1[k]), k
+
+    spans = snap["spans"]
+    children = {}
+    for j, s in enumerate(spans):
+        children.setdefault(s[3], []).append(s[0])
+    tracks = [i for i, s in enumerate(spans) if s[0] == "track_frame"]
+    assert tracks
+    for i in tracks:
+        assert children[i].count("pose_only_optimize") == 2
+    opts = [i for i, s in enumerate(spans) if s[0] == "pose_only_optimize"]
+    for i in opts:
+        assert children[i].count("pose_opt_graph_replay") == 1
+    # one capture per signature (track_frame's 6 and 4 iterations, and
+    # relocalization's 8 if a frame was lost), each inside a call that
+    # replays it right after
+    caps = [i for i, s in enumerate(spans) if s[0] == "pose_opt_graph_capture"]
+    assert 2 <= len(caps) == len(pose_opt._GRAPHS) <= 3
+    for i in caps:
+        assert spans[spans[i][3]][0] == "pose_only_optimize"
+        assert children[spans[i][3]] == ["pose_opt_graph_capture", "pose_opt_graph_replay"]
+    totals = snap["totals"]
+    assert totals["pose_opt_graph_replay"][1] == totals["pose_only_optimize"][1] == len(opts)

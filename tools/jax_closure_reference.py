@@ -678,7 +678,7 @@ def _stages_torch(eng, img, frame: int) -> dict:
                            sigma2=base ** (2.0 * feats.level[idx].to(torch.float32)), iters=4)
     out["pose_2"] = np.concatenate([r.pose.R.numpy().ravel(), r.pose.t.numpy()])
     tr = track_frame(m, pred, cam, feats, radius, cfg.match_max_hamming,
-                     local_cap=local_cap)
+                     local_cap=local_cap, image_hw=np.shape(img)[-2:])
     n_inl = int(tr.n_inliers)
     out["track_frame"] = np.concatenate([tr.pose.R.numpy().ravel(), tr.pose.t.numpy(), [n_inl]])
     kf, ba = _kf_decision(eng, n_inl, int(tr.map.n_kf), int(tr.map.n_lm), frame)
